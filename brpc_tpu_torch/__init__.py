@@ -1,0 +1,40 @@
+"""brpc_tpu_torch — the PyTorch/CUDA port of brpc_tpu (reference: brpc_tpu/).
+
+The device data plane runs on an NVIDIA GPU through PyTorch, with the Pallas
+kernels of the reference replaced by kernels written by hand for Hopper
+(`csrc/`).  The native C++ runtime under cpp/ is shared with the reference and
+bound again here (`brpc_tpu_torch.rpc`), so this package imports neither jax
+nor anything of brpc_tpu.
+
+Entry points run on the GPU unless the caller asks for the CPU
+(`device="cpu"`); with no device given and no GPU present they raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` when given, else the
+    GPU.  Raises RuntimeError when no device is given and there is no GPU —
+    never a quiet move to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def payload_from_numpy(arr, device=None) -> torch.Tensor:
+    """A numpy payload as a flat uint32 tensor on `device` — the state that
+    crosses from the JAX side, which takes `jnp.asarray` of the same array.
+    Values convert like `astype(np.uint32)`."""
+    dev = resolve_device(device)
+    host = np.ascontiguousarray(np.asarray(arr).astype(np.uint32).ravel())
+    # Moved as int32 bits: uint32 copies are the narrowest torch support.
+    return torch.from_numpy(host.view(np.int32)).to(dev).view(torch.uint32)

@@ -1,0 +1,58 @@
+"""The port stands alone: brpc_tpu_torch and chip_smoke.py import neither
+jax nor anything of brpc_tpu (importing any brpc_tpu module runs
+brpc_tpu/__init__.py, which imports jax)."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "brpc_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+_FORBIDDEN = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|brpc_tpu)\b", re.MULTILINE)
+
+
+def _modules() -> list[str]:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_every_port_module_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib')\n"
+        "             or m.startswith(('jax.', 'jaxlib.'))\n"
+        "             or m == 'brpc_tpu' or m.startswith('brpc_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('OK', len(sys.modules))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(REPO)) for p in SOURCES])
+def test_source_has_no_jax_or_reference_import(path):
+    hits = _FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path.relative_to(REPO)} imports {hits}"
+
+
+def test_forbidden_pattern_tells_port_from_reference():
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("from brpc_tpu.rpc import zerocopy")
+    assert _FORBIDDEN.search("    import brpc_tpu")
+    assert not _FORBIDDEN.search("from brpc_tpu_torch.rpc import zerocopy")
+    assert not _FORBIDDEN.search("import brpc_tpu_torch")
