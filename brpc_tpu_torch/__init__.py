@@ -38,3 +38,22 @@ def payload_from_numpy(arr, device=None) -> torch.Tensor:
     host = np.ascontiguousarray(np.asarray(arr).astype(np.uint32).ravel())
     # Moved as int32 bits: uint32 copies are the narrowest torch support.
     return torch.from_numpy(host.view(np.int32)).to(dev).view(torch.uint32)
+
+
+def tensor_from_numpy(arr, device=None) -> torch.Tensor:
+    """A numpy array as a tensor of the same shape and type on `device` —
+    how f32, bf16, uint8 and uint32 state crosses from the JAX side, which
+    takes `jnp.asarray` of the same array.  uint32 moves as its int32 bits;
+    a bfloat16 array (numpy has no bf16 of its own: ml_dtypes', as
+    `np.asarray` of a jax bf16 array gives) converts exactly by way of
+    float32, which holds every bf16 value."""
+    dev = resolve_device(device)
+    host = np.ascontiguousarray(np.asarray(arr))
+    # torch.tensor copies: the result never aliases `arr`, on the CPU too.
+    if host.dtype.name == "bfloat16":
+        return torch.tensor(host.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    if host.dtype == np.uint32:
+        return torch.tensor(host.view(np.int32), device=dev).view(
+            torch.uint32)
+    return torch.tensor(host, device=dev)

@@ -18,7 +18,19 @@ From the root of a checkout it:
    before and read just after;
 5. times each kernel at 64 MiB with CUDA events beside its bound, its plain
    version and PyTorch calls for the same function, and the D2H landing
-   and RPC rates.
+   and RPC rates;
+6. holds the ring all-gather kernel (K2) against its plain schedule on the
+   card, every peer's copy, bit-exact, at n = 2, 4, 8 (f32 arange, seeded
+   random bits with NaN patterns, bf16), plus its error contract and an
+   exact launch count;
+7. drives the multi-device path over n = 8 logical peers on the card at the
+   reference's headline size (the rdma_performance 64 MiB N-to-N
+   exchange), with every launch count reset just before and read just
+   after: the N-to-N exchange, K2 on 8 MiB chunks through the fabric, the
+   full data-plane step on the 2x4 mesh, the stream echo, causal ring
+   attention in f32 and bf16 against full attention, and the port's
+   dryrun_multichip(8);
+8. times K2 at its main-path shape the way K1 is timed.
 
 It prints a `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  It exits non-zero, printing no result,
@@ -42,6 +54,13 @@ MAIN_BYTES = 64 * MIB
 RPC_CALLS = 8
 SEED = 0
 MASK = 0xFFFFFFFF
+PEERS = 8                  # logical peers of the multi-device path
+NTON_LANES = 2 * MIB       # uint32 lanes per (peer, destination) row block
+RING_CHUNK = (16384, 128)  # f32 rows, cols of each peer's K2 chunk: 8 MiB
+STEP_PAYLOAD = (16384, 1024)  # f32 payload of the data-plane step: 64 MiB
+STREAM_CHUNKS = 16         # stream echo: chunks of 4 MiB per peer
+STREAM_LANES = MIB         # uint32 lanes per peer per chunk
+ATTN = (8, 8192, 128)      # ring attention: batch*heads, seq, head_dim
 # The H100 SXM's 32-bit integer add rate for the operations bound on K1's
 # n adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12 adds/s.  It
 # never binds (the bytes bound is ~40x larger), but it is the other half
@@ -114,6 +133,7 @@ def payloads(lanes: int, dev):
 def phase_build(log) -> None:
     from brpc_tpu_torch.ops import _kernels
     from brpc_tpu_torch.ops.echo_kernel import KERNEL
+    from brpc_tpu_torch.ops.ring_kernel import KERNEL as RING_KERNEL
     from brpc_tpu_torch.rpc import _lib
 
     def timed(name, fn):
@@ -121,10 +141,11 @@ def phase_build(log) -> None:
         out = fn()
         return name, time.perf_counter() - t0, out
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futs = [pool.submit(timed, f"kernel {KERNEL}",
-                            lambda: _kernels.build(KERNEL)),
-                pool.submit(timed, "libtpurpc.so", _lib.ensure_built)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futs = [pool.submit(timed, f"kernel {name}",
+                            lambda name=name: _kernels.build(name))
+                for name in (KERNEL, RING_KERNEL)]
+        futs.append(pool.submit(timed, "libtpurpc.so", _lib.ensure_built))
         results = [f.result() for f in futs]
     for name, secs, out in results:
         log(f"build {name}: {secs:.3f} s")
@@ -339,6 +360,253 @@ def phase_timing(dev, card: str, log) -> dict:
     return out
 
 
+def _int_bits(t):
+    """A tensor's elements as int64 values of their raw bits (so NaN
+    payloads compare bit for bit)."""
+    import torch
+
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    return t.contiguous().view(width[t.element_size()]).to(torch.int64)
+
+
+def _ring_cases(n: int, dev):
+    """(kind, per-peer chunks) for K2's check: f32 arange, seeded random
+    bits read as f32 (NaN patterns included), bf16 from a seeded normal."""
+    import numpy as np
+    import torch
+
+    rows, cols = RING_CHUNK
+    size = rows * cols
+    yield "f32_arange", [
+        torch.arange(r * size, (r + 1) * size, dtype=torch.float32,
+                     device=dev).view(rows, cols) for r in range(n)]
+    rng = np.random.default_rng(SEED + n)
+    yield "f32_random_bits", [
+        torch.from_numpy(rng.integers(0, 1 << 32, size=(rows, cols),
+                                      dtype=np.uint32).view(np.int32)).to(
+            dev).view(torch.float32) for _ in range(n)]
+    yield "bf16", [
+        torch.from_numpy(rng.standard_normal((rows, 2 * cols)).astype(
+            np.float32)).to(dev).to(torch.bfloat16) for _ in range(n)]
+
+
+def phase_ring_vs_plain(dev, log) -> int:
+    """K2 against its plain schedule on the card, every peer's copy;
+    returns the max abs error (of the raw bits)."""
+    import torch
+
+    from brpc_tpu_torch.ops import _kernels
+    from brpc_tpu_torch.ops.ring_kernel import (WRAPPER, capacity,
+                                                ring_all_gather,
+                                                ring_all_gather_kernel,
+                                                ring_all_gather_plain,
+                                                stripes_for)
+    from brpc_tpu_torch.parallel import Fabric
+
+    max_err = 0
+    for n in (2, 4, 8):
+        for kind, chunks in _ring_cases(n, dev):
+            got = ring_all_gather(chunks)
+            want = ring_all_gather_plain(chunks)
+            whole = torch.cat([_int_bits(c) for c in chunks])
+            for peer, (g, w) in enumerate(zip(got, want)):
+                err = int((_int_bits(g) - _int_bits(w)).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0, f"K2 != plain at n={n} {kind} peer {peer}")
+                check(torch.equal(_int_bits(g), whole),
+                      f"K2 peer {peer} is not the gather at n={n} {kind}")
+            stripes = stripes_for(chunks[0].numel() *
+                                  chunks[0].element_size(), n,
+                                  capacity(dev.index or 0))
+            log(f"K2 vs plain n={n} {kind:<15}: every peer bit-exact "
+                f"({n} x {stripes} CTAs)")
+    bad = [torch.zeros((3, 5), dtype=torch.bfloat16, device=dev)] * 2
+    try:
+        ring_all_gather(bad)
+    except ValueError:
+        pass
+    else:
+        raise SmokeError("a 30-byte chunk did not raise ValueError")
+    for what, fn in (
+            ("one peer", lambda: ring_all_gather(bad[:1])),
+            ("2-D mesh", lambda: ring_all_gather_kernel(
+                Fabric.auto((2, 4), ("dp", "link"), devices=dev), "link"))):
+        try:
+            fn()
+        except RuntimeError:
+            pass
+        else:
+            raise SmokeError(f"K2 with {what} did not raise RuntimeError")
+    _kernels.reset_launches()
+    chunks = [torch.zeros((8, 128), device=dev) for _ in range(4)]
+    for _ in range(3):
+        ring_all_gather(chunks)
+    ring_all_gather_plain(chunks)
+    check(_kernels.launches[WRAPPER] == 3,
+          f"K2 launch counter {_kernels.launches[WRAPPER]} != 3")
+    torch.cuda.synchronize()
+    log("K2 contract: ValueError on a 30-byte chunk, RuntimeError for one "
+        "peer and a 2-D mesh, launch counter exact")
+    return max_err
+
+
+def _u32_np(t):
+    import numpy as np
+    import torch
+
+    return t.view(torch.int32).cpu().numpy().view(np.uint32)
+
+
+def phase_multi_device(dev, log) -> dict:
+    """The multi-device path over PEERS logical peers at full width."""
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch import tensor_from_numpy
+    from brpc_tpu_torch.graft_entry import dryrun_multichip
+    from brpc_tpu_torch.models.echo import (make_full_dataplane_step,
+                                            make_nton_exchange)
+    from brpc_tpu_torch.models.ring_attention import (attention_reference,
+                                                      ring_attention)
+    from brpc_tpu_torch.ops.ring_kernel import (ring_all_gather_kernel,
+                                                ring_all_gather_reference)
+    from brpc_tpu_torch.parallel import Fabric
+    from brpc_tpu_torch.streaming import stream_echo
+
+    n = PEERS
+    out = {}
+    ring = Fabric.auto((n,), ("link",), devices=dev)
+    rng = np.random.default_rng(SEED + 2)
+
+    # N-to-N exchange: (n, 2 Mi) uint32 per peer, 64 MiB, 512 MiB in all.
+    rows = rng.integers(0, 1 << 32, size=(n * n, NTON_LANES), dtype=np.uint32)
+    local = tensor_from_numpy(rows, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recv, sums = make_nton_exchange(ring, "link")(local)
+    torch.cuda.synchronize()
+    out["nton_s"] = time.perf_counter() - t0
+    want = rows.reshape(n, n, NTON_LANES).transpose(1, 0, 2).reshape(
+        n * n, NTON_LANES)
+    check(np.array_equal(_u32_np(recv), want), "N-to-N received blocks")
+    per_peer = want.reshape(n, -1).sum(axis=1, dtype=np.uint64) % (1 << 32)
+    check(np.array_equal(_u32_np(sums), per_peer.astype(np.uint32)),
+          "N-to-N per-peer sum32")
+    del recv, local, rows, want
+    log(f"N-to-N exchange: {n} peers x 64 MiB, blocks and sum32 match "
+        f"numpy, {out['nton_s']} s")
+
+    # K2 through the fabric: an 8 MiB chunk per peer, 64 MiB gathered.
+    chunks = tensor_from_numpy(rng.standard_normal(
+        (n * RING_CHUNK[0], RING_CHUNK[1])).astype(np.float32), dev)
+    got = ring_all_gather_kernel(ring, "link")(chunks)
+    want = ring_all_gather_reference(ring, "link")(chunks)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(got, chunks), "K2 through the fabric")
+    log(f"K2 via Fabric.spmd: {n} x 8 MiB -> 64 MiB gathered, bit-exact "
+        "against the all_gather reference")
+
+    # The full data-plane step on the 2x4 mesh, 64 MiB f32 payload.
+    mesh = Fabric.auto((2, n // 2), ("dp", "link"), devices=dev)
+    payload = torch.from_numpy(rng.integers(0, 4, size=STEP_PAYLOAD).astype(
+        np.float32)).to(dev)
+    resp, csum = make_full_dataplane_step(mesh, "dp", "link")(payload)
+    check(torch.equal(resp, payload * 3.0), "step response != 3 x payload")
+    exact = 3.0 * float(payload.double().sum())
+    check(abs(float(csum[0]) - exact) <= 1e-5 * exact,
+          f"step checksum {float(csum[0])} vs {exact}")
+    del resp, payload
+    log("full data-plane step (2x4, 64 MiB f32): response = 3 x payload, "
+        f"checksum {float(csum[0])} within 1e-5 of {exact}")
+
+    # Stream echo: 16 chunks of 4 MiB per peer.
+    chunks = rng.integers(0, 1 << 32, size=(STREAM_CHUNKS, n * STREAM_LANES),
+                          dtype=np.uint32)
+    totals, per_chunk = stream_echo(ring, "link", STREAM_CHUNKS)(
+        tensor_from_numpy(chunks, dev),
+        torch.zeros(n, dtype=torch.int32, device=dev).view(torch.uint32))
+    sent = chunks.reshape(STREAM_CHUNKS, n, STREAM_LANES).sum(
+        axis=2, dtype=np.uint64) % (1 << 32)
+    arrived = np.roll(sent, 1, axis=1).astype(np.uint32)  # from the left
+    check(np.array_equal(_u32_np(per_chunk), arrived),
+          "stream echo per-chunk sums")
+    check(np.array_equal(_u32_np(totals), (arrived.astype(np.uint64).sum(
+        axis=0) % (1 << 32)).astype(np.uint32)), "stream echo totals")
+    log(f"stream echo: {STREAM_CHUNKS} x 4 MiB per peer, per-chunk sums and "
+        "totals match numpy")
+
+    # Causal ring attention against full attention, f32 and bf16.
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 tolerance needs it
+    out["attention_max_err"] = {}
+    q, k, v = (torch.from_numpy(rng.standard_normal(ATTN).astype(
+        np.float32)).to(dev) for _ in range(3))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        got = ring_attention(ring, "link", causal=True)(qq, kk, vv)
+        want = attention_reference(causal=True)(qq, kk, vv)
+        err = float((got.float() - want.float()).abs().max())
+        out["attention_max_err"][str(dtype)] = err
+        check(bool(torch.isfinite(got).all()) and got.shape == qq.shape,
+              f"ring attention {dtype} output")
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol)),
+              f"ring attention {dtype} max err {err} beyond {tol}")
+        log(f"ring attention causal {tuple(ATTN)} {dtype}: max err {err} "
+            f"(tolerance {tol})")
+        del got, want
+    dryrun_multichip(n, device=dev)
+    log(f"dryrun_multichip({n}) on the card: every leg checked")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_ring_timing(dev, card: str, log) -> dict:
+    import torch
+
+    from brpc_tpu_torch.ops.ring_kernel import (ring_all_gather,
+                                                ring_all_gather_plain)
+    from brpc_tpu_torch.ops.roofline import hbm_peak_gbps
+
+    n = PEERS
+    rows, cols = RING_CHUNK
+    chunks = [torch.randn(rows, cols, device=dev) for _ in range(n)]
+    stacked = torch.stack(chunks)
+    chunk_bytes = rows * cols * 4
+    need = (n + n * n) * chunk_bytes          # read n chunks, write n outputs
+    schedule = n * (4 * n - 1) * chunk_bytes  # what the ring schedule moves
+    peak = hbm_peak_gbps(torch.cuda.get_device_name(0))
+    bound_ms = None if peak is None else need / (peak * 1e9) * 1e3
+    schedule_ms = None if peak is None else schedule / (peak * 1e9) * 1e3
+
+    def library():  # one PyTorch call for the same function
+        return stacked.view(1, n * rows, cols).repeat(n, 1, 1)
+
+    t = {}
+    for key, fn, iters in (
+            ("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
+            ("ms", lambda: ring_all_gather(chunks), 20),
+            ("library_ms", library, 20),
+            ("ms", lambda: ring_all_gather(chunks), 20),
+            ("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
+            ("library_ms", library, 20)):
+        t.setdefault(key, []).append(cuda_ms(fn, iters=iters))
+    t = {k: sum(v) / len(v) for k, v in t.items()}
+    out = {"card": card, "peers": n, "chunk_bytes": chunk_bytes,
+           "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "library_ms": t["library_ms"],
+           "library": "stacked.view(1, n*rows, cols).repeat(n, 1, 1)",
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_bytes": need, "schedule_bytes": schedule,
+           "schedule_bound_ms": schedule_ms,
+           "hbm_frac": bound_ms / t["ms"] if bound_ms else None,
+           "schedule_gbps": schedule / (t["ms"] * 1e-3) / 1e9}
+    log(f"K2 n={n} x 8 MiB [{card}]: {t['ms']} ms, bound {bound_ms} ms "
+        f"(bytes, (n+n^2)C), schedule's own bytes {schedule_ms} ms; plain "
+        f"{t['plain_ms']} ms; library {t['library_ms']} ms; hbm_frac "
+        f"{out['hbm_frac']}")
+    return out
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -349,6 +617,7 @@ def run(out_path: str | None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from brpc_tpu_torch.ops import _kernels
     from brpc_tpu_torch.ops.echo_kernel import WRAPPER
+    from brpc_tpu_torch.ops.ring_kernel import WRAPPER as RING_WRAPPER
 
     def log(msg: str) -> None:
         print(msg, flush=True)
@@ -371,11 +640,22 @@ def run(out_path: str | None) -> int:
     log(f"main path launches: {launches}")
 
     timing = phase_timing(dev, card, log)
+    ring_err = phase_ring_vs_plain(dev, log)
+
+    _kernels.reset_launches()
+    multi = phase_multi_device(dev, log)
+    ring_launches = dict(_kernels.launches)
+    check(ring_launches.get(RING_WRAPPER, 0) > 0,
+          f"multi-device path launched {RING_WRAPPER} no time")
+    log(f"multi-device path launches: {ring_launches}")
+
+    ring_timing = phase_ring_timing(dev, card, log)
     timing_line = dict(timing, rpc_gbps=main["rpc_gbps"],
                        transport=main["transport"],
                        d2h_land_gbps=main["d2h_land_gbps"],
                        ici_zero_copy=main["ici_zero_copy"],
                        roundtrip_verified=main["roundtrip_verified"],
+                       ring=dict(ring_timing, **multi),
                        wall_s=time.perf_counter() - t0)
     log("timing: " + json.dumps(timing_line))
     kernels = {"kernels": [{
@@ -385,7 +665,15 @@ def run(out_path: str | None) -> int:
         "launches": launches[WRAPPER], "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None}, {
+        "name": RING_WRAPPER, "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/ring_kernel.cu",
+        "replaces": "brpc_tpu/ops/ring_kernel.py:37",
+        "launches": ring_launches[RING_WRAPPER], "max_abs_err": ring_err,
+        "ms": ring_timing["ms"], "plain_ms": ring_timing["plain_ms"],
+        "bound_ms": ring_timing["bound_ms"],
+        "bound_by": ring_timing["bound_by"],
+        "library_ms": ring_timing["library_ms"]}]}
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)),
                     exist_ok=True)
