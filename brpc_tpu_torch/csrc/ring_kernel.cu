@@ -1,51 +1,43 @@
-// K2: the ring all-gather for Hopper (sm_90a), over the logical peers of
-// one card.
+// K2: the all-gather of one chunk per logical peer, for Hopper (sm_90a),
+// over the logical peers of one card.
 //
-// Replaces brpc_tpu/ops/ring_kernel.py::_ring_kernel (the Pallas kernel that
-// ring_all_gather_pallas launches).  It keeps that kernel's schedule: an
-// entry barrier to both neighbours; the own chunk into its slot of the output
-// and into comm[0]; then N-1 hops, each of which waits for the arrival in
-// comm[(step+1)%2], grants the left neighbour cap[step%2], waits for the
-// right neighbour's grant of the same slot, forwards the arrival into the
-// right neighbour's comm[step%2] (hop step+1) and only then copies the
-// arrival to out[src], src = (r - step - 1) mod n; and an exit barrier.
-// The TPU's remote DMA becomes a push: the sending CTA writes into the
-// neighbour's comm slot and then raises the neighbour's arrival flag.
+// Replaces brpc_tpu/ops/ring_kernel.py::_ring_kernel (:37, the Pallas
+// kernel that ring_all_gather_pallas launches).  It computes that kernel's
+// function, not its schedule:
 //
-// Form: one launch serves all n peers.  Each peer's buffers come in through
-// per-peer pointers (local[r], out[r], comm[r] with its two slots) and each
-// peer has a flag pad; a later multi-GPU form changes only the pointers (to
-// peer-mapped memory) and the scope of the flags (system instead of gpu).
-// Each chunk is cut into `stripes` stripes and every stripe is a ring of its
-// own with its own flags, one CTA per (peer, stripe), so no CTA waits on
-// another CTA of its own peer.  Flags count monotonically (arrivals per
-// slot, grants per slot, barrier signals), are zeroed by a stream-ordered
-// memset before each launch, and are raised with red.release.gpu after a
-// __syncthreads() and read with ld.acquire.gpu; comm slots are read and
-// written through L2 (.cg), never a stale L1 line.
+//   out[r][j*C : (j+1)*C] = local[j]   for every peer r and source j.
 //
-// Co-residency: every CTA spins on its neighbours, so all must be resident
-// at once.  The kernel is launched cooperatively, which CUDA refuses
-// (cudaErrorCooperativeLaunchTooLarge) for a grid that cannot be resident;
-// the wrapper sizes the grid from brpc_ring_capacity and raises before that.
-// Every spin is bounded by the global timer (kSpinNs): a CTA that waits
-// longer records (kind, peer, hop, stripe) in the error words and returns,
-// and a CTA that sees an error recorded stops waiting; the wrapper raises.
+// The TPU kernel forwards each chunk around a ring of chips, one ICI hop at
+// a time, because a chip reaches only its neighbours.  On one card every
+// peer's buffer is in the same HBM, so a ring that emulates ICI hops buys
+// nothing: it moves each chunk through comm buffers n times over and makes
+// every hop wait for the one before.  Here each source byte is read once
+// and each output byte written once, and no CTA waits on another.
 //
-// Bound on one card: device-memory bytes.  The function must read the n
-// chunks and write n replicated outputs, (n + n^2) * C bytes: at n = 8 and
-// C = 8 MiB that is 576 MiB, 0.180 ms at the H100 SXM's published 3.35 TB/s.
-// The schedule moves more: per peer it reads its chunk once and writes it
-// twice, and per hop writes the forwarded chunk and copies the arrival out,
-// n * (4n - 1) * C bytes in all (2.0 GiB at the same size, 0.64 ms), so this
-// faithful port can reach at most ~0.28 of the function's bound.  Design
-// against the schedule's own bytes: 16-byte loads and stores, neighbouring
-// threads on neighbouring addresses, four loads in flight per thread before
-// any store, one wait and one signal per hop for a whole stripe.
+// Bound: device-memory bytes, (n + n^2) * C (read n chunks, write n
+// replicated outputs): at n = 8 and C = 8 MiB that is 576 MiB, 0.180 ms at
+// the H100 SXM's published 3.35 TB/s.  The function does no arithmetic.
+//
+// Bulk path (C and every pointer 16-byte aligned): a persistent grid, one
+// CTA per SM, walks work units (source j, tile t) with a grid stride.  One
+// thread drives everything with Hopper's bulk copy engine (TMA, 1-D form,
+// raw pointers, no tensor map): a bulk load of the tile into a stage of a
+// ring in shared memory completes on that stage's mbarrier; then n bulk
+// stores of the stage, one to each peer's output, form one bulk group.
+// kStages - 1 loads stay in flight while a tile's stores drain, and a stage
+// is reloaded only after the stores that read it have read it
+// (wait_group.read).  The stores carry an L2 evict-first hint: the outputs
+// (n^2 * C) stream through the 50 MB L2 and are not read again here.
+//
+// Ragged path (C or a pointer not 16-byte aligned, as a narrow view of an
+// odd-sized chunk is): the CTA's threads copy at the widest width w in
+// {8, 4, 2, 1} that divides C and every address; each element is read once
+// and stored n times.  The wrapper's plan (ops/ring_kernel.py,
+// plan_gather) chooses the path, the tile and the grid.
 //
 // Interface: plain C functions, loaded with ctypes.  brpc_ring_all_gather
-// zeroes the flag pad and error words on the caller's stream, launches, does
-// not synchronise, allocates nothing, and returns the launch's cudaError_t.
+// launches on the caller's stream, does not synchronise, allocates
+// nothing, and returns the launch's cudaError_t.
 
 #include <cuda_runtime.h>
 
@@ -54,272 +46,216 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxPeers = 64;
-constexpr int kFlagWords = 8;  // per (peer, stripe); 5 used, padded
-constexpr int kRecv0 = 0;      // arrivals into comm[0], comm[1]
-constexpr int kCap0 = 2;       // grants of comm[0], comm[1]
-constexpr int kBarrier = 4;    // entry + exit barrier signals
-constexpr unsigned long long kSpinNs = 5ull * 1000 * 1000 * 1000;
+constexpr int kStages = 4;                 // bulk path: tiles in flight
+constexpr unsigned kMaxTile = 32 * 1024;   // bulk path: bytes per stage
+constexpr int kBulkThreads = 32;           // one warp; lane 0 drives
+constexpr int kRaggedThreads = 256;
+constexpr size_t kBulkSmem = static_cast<size_t>(kStages) * kMaxTile;
 
-// What a stalled CTA was waiting for (error word 0).
-constexpr int kWaitEntry = 1;
-constexpr int kWaitArrival = 2;
-constexpr int kWaitGrant = 3;
-constexpr int kWaitExit = 4;
-
-struct RingArgs {
-  const uint4* local[kMaxPeers];
-  uint4* out[kMaxPeers];
-  uint4* comm[kMaxPeers];  // two slots of chunk_vecs each
-  unsigned* flags;         // [n][stripes][kFlagWords]
-  int* err;                // kind, peer, hop, stripe
+struct GatherArgs {
+  const unsigned char* local[kMaxPeers];
+  unsigned char* out[kMaxPeers];
+  unsigned long long chunk_bytes;  // C
+  unsigned long long tile_bytes;   // T: C is cut into ceil(C / T) tiles
+  unsigned long long units;        // n * tiles; u = (u / tiles, u % tiles)
   int n;
-  int stripes;
-  size_t chunk_vecs;   // uint4 per chunk
-  size_t stripe_vecs;  // uint4 per stripe
 };
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
-               :
-               : "l"(p), "r"(v)
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
                : "memory");
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        " .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-__device__ __forceinline__ unsigned* flag(const RingArgs& a, int peer,
-                                          int stripe, int word) {
-  return a.flags +
-         (static_cast<size_t>(peer) * a.stripes + stripe) * kFlagWords + word;
+// Bulk load of `bytes` from global memory into shared memory; completion
+// is counted on the mbarrier at `bar`, which expects exactly these bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-// Thread 0 only, after the block's writes are done (__syncthreads()).
-__device__ __forceinline__ void signal(unsigned* f) {
-  __threadfence();
-  red_release_add(f, 1u);
+// Bulk store of `bytes` from shared memory to global memory, in the open
+// bulk group, with an L2 cache policy.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0], [%1], %2, %3;" ::"l"(dst),
+      "r"(src), "r"(bytes), "l"(policy)
+      : "memory");
 }
 
-// Thread 0 only: waits until *f >= want.  False when the wait ran past
-// kSpinNs (recording why) or another CTA recorded an error first.
-__device__ bool wait_at_least(const RingArgs& a, const unsigned* f,
-                              unsigned want, int kind, int peer, int hop,
-                              int stripe) {
-  if (ld_acquire(f) >= want) {
-    return true;
-  }
-  const unsigned long long start = global_ns();
-  for (;;) {
-    if (ld_acquire(f) >= want) {
-      __threadfence();
-      return true;
-    }
-    if (*reinterpret_cast<volatile int*>(a.err) != 0) {
-      return false;
-    }
-    if (global_ns() - start > kSpinNs) {
-      if (atomicCAS(a.err, 0, kind) == 0) {
-        a.err[1] = peer;
-        a.err[2] = hop;
-        a.err[3] = stripe;
-        __threadfence();
-      }
-      return false;
-    }
-    __nanosleep(64);
-  }
-}
-
-// dst[i] = src[i] for a stripe, through L2 on both sides.
-__device__ __forceinline__ void copy_stripe(uint4* dst, const uint4* src,
-                                            size_t n) {
-  size_t i = threadIdx.x;
-  for (; i + 3 * kThreads < n; i += 4 * kThreads) {
-    const uint4 v0 = __ldcg(src + i);
-    const uint4 v1 = __ldcg(src + i + kThreads);
-    const uint4 v2 = __ldcg(src + i + 2 * kThreads);
-    const uint4 v3 = __ldcg(src + i + 3 * kThreads);
-    __stcg(dst + i, v0);
-    __stcg(dst + i + kThreads, v1);
-    __stcg(dst + i + 2 * kThreads, v2);
-    __stcg(dst + i + 3 * kThreads, v3);
-  }
-  for (; i < n; i += kThreads) {
-    __stcg(dst + i, __ldcg(src + i));
-  }
-}
-
-// dst0[i] = dst1[i] = src[i]: one read, two writes.
-__device__ __forceinline__ void copy_stripe2(uint4* dst0, uint4* dst1,
-                                             const uint4* src, size_t n) {
-  for (size_t i = threadIdx.x; i < n; i += kThreads) {
-    const uint4 v = __ldcg(src + i);
-    __stcg(dst0 + i, v);
-    __stcg(dst1 + i, v);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    ring_all_gather_kernel(const RingArgs a) {
-  __shared__ int ok;
-  const int n = a.n;
-  const int r = blockIdx.x / a.stripes;
-  const int s = blockIdx.x % a.stripes;
-  const int left = (r + n - 1) % n;
-  const int right = (r + 1) % n;
-  const size_t sv = a.stripe_vecs;
-  const size_t off = static_cast<size_t>(s) * sv;
-  uint4* const mine = a.comm[r] + off;        // my slot 0 of this stripe
-  uint4* const theirs = a.comm[right] + off;  // the right neighbour's
-  const size_t slot = a.chunk_vecs;           // slot 1 = slot 0 + slot
-  const bool lead = threadIdx.x == 0;
-
-  // Entry barrier: both neighbours are inside the kernel before any
-  // hop-0 write lands.
-  if (lead) {
-    signal(flag(a, left, s, kBarrier));
-    signal(flag(a, right, s, kBarrier));
-    ok = wait_at_least(a, flag(a, r, s, kBarrier), 2, kWaitEntry, r, -1, s);
-  }
-  __syncthreads();
-  if (!ok) {
+__global__ void __launch_bounds__(kBulkThreads)
+    bulk_gather(const __grid_constant__ GatherArgs a) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  const unsigned long long first = blockIdx.x;
+  const unsigned long long stride = gridDim.x;
+  if (threadIdx.x != 0 || first >= a.units) {
     return;
   }
-
-  // Own chunk into its slot of the output and into comm[0]; hop 0 pushes
-  // comm[0] into the right neighbour's comm[1].
-  copy_stripe2(a.out[r] + r * a.chunk_vecs + off, mine, a.local[r] + off, sv);
-  __syncthreads();
-  copy_stripe(theirs + slot, mine, sv);
-  __syncthreads();
-  if (lead) {
-    signal(flag(a, right, s, kRecv0 + 1));
+  const unsigned long long C = a.chunk_bytes;
+  const unsigned long long T = a.tile_bytes;
+  const unsigned long long tiles = (C + T - 1) / T;
+  const unsigned long long count = (a.units - first + stride - 1) / stride;
+  const uint32_t stage0 = smem_addr(stage);
+  const uint32_t full0 = smem_addr(full);
+  for (int s = 0; s < kStages; ++s) {
+    mbar_init(full0 + 8 * s);
   }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  uint64_t evict_first;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(evict_first));
 
-  for (int step = 0; step < n - 1; ++step) {
-    const int recv_slot = (step + 1) & 1;
-    const int parity = step & 1;
-    const int src = (r - step - 1 + 2 * n) % n;
-    const unsigned nth = static_cast<unsigned>(step / 2 + 1);
-    // This hop's chunk has landed in comm[recv_slot] (our own push from
-    // comm[parity] finished before the last __syncthreads()).
-    if (lead) {
-      ok = wait_at_least(a, flag(a, r, s, kRecv0 + recv_slot), nth,
-                         kWaitArrival, r, step, s);
-    }
-    __syncthreads();
-    if (!ok) {
-      return;
-    }
-    if (step + 1 < n - 1) {
-      // Grant left our comm[parity] (drained: sent from and copied out),
-      // wait for right's grant of its comm[parity], forward hop step+1.
-      if (lead) {
-        signal(flag(a, left, s, kCap0 + parity));
-        ok = wait_at_least(a, flag(a, r, s, kCap0 + parity), nth, kWaitGrant,
-                           r, step, s);
-      }
-      __syncthreads();
-      if (!ok) {
-        return;
-      }
-      copy_stripe(theirs + parity * slot, mine + recv_slot * slot, sv);
-      __syncthreads();
-      if (lead) {
-        signal(flag(a, right, s, kRecv0 + parity));
-      }
-    }
-    copy_stripe(a.out[r] + src * a.chunk_vecs + off, mine + recv_slot * slot,
-                sv);
-    __syncthreads();
-  }
+  // Unit k of this CTA: source j, byte offset `off` into the chunk, bytes.
+  auto unit = [&](unsigned long long k, int* j, unsigned long long* off,
+                  uint32_t* bytes) {
+    const unsigned long long u = first + k * stride;
+    *j = static_cast<int>(u / tiles);
+    *off = (u % tiles) * T;
+    *bytes = static_cast<uint32_t>(C - *off < T ? C - *off : T);
+  };
+  auto load = [&](unsigned long long k) {
+    int j;
+    unsigned long long off;
+    uint32_t bytes;
+    unit(k, &j, &off, &bytes);
+    const int s = static_cast<int>(k % kStages);
+    bulk_load(stage0 + s * kMaxTile, a.local[j] + off, bytes, full0 + 8 * s);
+  };
 
-  // Exit barrier: neighbours are done with our buffers.
-  if (lead) {
-    signal(flag(a, left, s, kBarrier));
-    signal(flag(a, right, s, kBarrier));
-    wait_at_least(a, flag(a, r, s, kBarrier), 4, kWaitExit, r, n - 1, s);
+  for (unsigned long long k = 0; k < count && k < kStages; ++k) {
+    load(k);
   }
+  for (unsigned long long k = 0; k < count; ++k) {
+    const int s = static_cast<int>(k % kStages);
+    mbar_wait(full0 + 8 * s, static_cast<uint32_t>((k / kStages) & 1));
+    int j;
+    unsigned long long off;
+    uint32_t bytes;
+    unit(k, &j, &off, &bytes);
+    const unsigned long long dst = j * C + off;
+    for (int r = 0; r < a.n; ++r) {
+      bulk_store(a.out[r] + dst, stage0 + s * kMaxTile, bytes, evict_first);
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    // Refill the stage of unit k - 1 once its stores have read it; unit
+    // k's stores stay in flight meanwhile.
+    if (k >= 1 && k - 1 + kStages < count) {
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      load(k - 1 + kStages);
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kRaggedThreads)
+    ragged_gather(const __grid_constant__ GatherArgs a) {
+  const unsigned long long C = a.chunk_bytes;
+  const unsigned long long T = a.tile_bytes;
+  const unsigned long long tiles = (C + T - 1) / T;
+  for (unsigned long long u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const int j = static_cast<int>(u / tiles);
+    const unsigned long long off = (u % tiles) * T;
+    const unsigned long long len = (C - off < T ? C - off : T) / sizeof(V);
+    const V* src = reinterpret_cast<const V*>(a.local[j] + off);
+    const unsigned long long dst = j * C + off;
+    for (unsigned long long i = threadIdx.x; i < len; i += kRaggedThreads) {
+      const V v = __ldcs(src + i);
+      for (int r = 0; r < a.n; ++r) {
+        __stcs(reinterpret_cast<V*>(a.out[r] + dst) + i, v);
+      }
+    }
+  }
+}
+
+template <typename V>
+cudaError_t launch_ragged(const GatherArgs& a, int grid, cudaStream_t st) {
+  ragged_gather<V><<<grid, kRaggedThreads, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The most CTAs of ring_all_gather_kernel that can be resident at once on
-// the current device (occupancy x SMs); 0 when the device has no
-// cooperative launch.  Returns a cudaError_t.
-extern "C" int brpc_ring_capacity(int* ctas) {
-  int dev = 0;
-  int sms = 0;
-  int coop = 0;
-  int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ring_all_gather_kernel, kThreads, 0);
-  }
-  *ctas = coop ? per_sm * sms : 0;
-  return static_cast<int>(err);
-}
-
-extern "C" int brpc_ring_max_peers() { return kMaxPeers; }
-
-// local/out/comm: n device pointers each, 16-byte aligned; comm[r] holds
-// 2 * chunk_bytes.  flags: n * stripes * 8 words; err: 4 words.
+// local/out: n device pointers each, every one aligned to `width` bytes,
+// and chunk_bytes a multiple of `width`.  width 16 takes the bulk path
+// (tile_bytes a multiple of 16, at most 32 KiB); width 8, 4, 2 or 1 the
+// ragged path (tile_bytes a multiple of width).  grid: CTAs to launch.
 extern "C" int brpc_ring_all_gather(const uint64_t* local, const uint64_t* out,
-                                    const uint64_t* comm, int n, int stripes,
-                                    size_t chunk_bytes, void* flags,
-                                    void* err, void* stream) {
-  if (n < 2 || n > kMaxPeers || stripes < 1 ||
-      chunk_bytes % (sizeof(uint4) * stripes) != 0) {
+                                    int n, unsigned long long chunk_bytes,
+                                    int width, unsigned long long tile_bytes,
+                                    int grid, void* stream) {
+  const bool bulk = width == 16;
+  if (n < 2 || n > kMaxPeers || grid < 1 || chunk_bytes == 0 ||
+      tile_bytes == 0 || (width & (width - 1)) != 0 || width < 1 ||
+      width > 16 || chunk_bytes % width != 0 || tile_bytes % width != 0 ||
+      (bulk && tile_bytes > kMaxTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RingArgs a = {};
+  GatherArgs a = {};
   for (int r = 0; r < n; ++r) {
-    a.local[r] = reinterpret_cast<const uint4*>(local[r]);
-    a.out[r] = reinterpret_cast<uint4*>(out[r]);
-    a.comm[r] = reinterpret_cast<uint4*>(comm[r]);
+    if (local[r] % width != 0 || out[r] % width != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    a.local[r] = reinterpret_cast<const unsigned char*>(local[r]);
+    a.out[r] = reinterpret_cast<unsigned char*>(out[r]);
   }
-  a.flags = static_cast<unsigned*>(flags);
-  a.err = static_cast<int*>(err);
   a.n = n;
-  a.stripes = stripes;
-  a.chunk_vecs = chunk_bytes / sizeof(uint4);
-  a.stripe_vecs = a.chunk_vecs / stripes;
-  cudaError_t e = cudaMemsetAsync(
-      flags, 0, sizeof(unsigned) * kFlagWords * n * stripes, st);
-  if (e == cudaSuccess) {
-    e = cudaMemsetAsync(err, 0, 4 * sizeof(int), st);
+  a.chunk_bytes = chunk_bytes;
+  a.tile_bytes = tile_bytes;
+  a.units = static_cast<unsigned long long>(n) *
+            ((chunk_bytes + tile_bytes - 1) / tile_bytes);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!bulk) {
+    switch (width) {
+      case 8:
+        return static_cast<int>(
+            launch_ragged<unsigned long long>(a, grid, st));
+      case 4:
+        return static_cast<int>(launch_ragged<unsigned>(a, grid, st));
+      case 2:
+        return static_cast<int>(launch_ragged<unsigned short>(a, grid, st));
+      default:
+        return static_cast<int>(launch_ragged<unsigned char>(a, grid, st));
+    }
   }
+  // Above 48 KB a block's dynamic shared memory must be asked for; the
+  // attribute is per device, so it is set before every launch.
+  cudaError_t e = cudaFuncSetAttribute(
+      bulk_gather, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBulkSmem));
   if (e != cudaSuccess) {
     return static_cast<int>(e);
   }
-  void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(ring_all_gather_kernel),
-      dim3(static_cast<unsigned>(n * stripes)), dim3(kThreads), params, 0, st);
-  if (e != cudaSuccess) {
-    return static_cast<int>(e);
-  }
+  bulk_gather<<<grid, kBulkThreads, kBulkSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,26 @@
-"""Ring all-gather — the explicit ring schedule as a kernel.  Port of
+"""Ring all-gather: one chunk per peer into every peer's output.  Port of
 brpc_tpu/ops/ring_kernel.py.
 
 `ring_all_gather(chunks)` gathers one chunk per logical peer into every
 peer's own output with kernel K2 (csrc/ring_kernel.cu, replacing the
 reference's Pallas `_ring_kernel`): one launch serves all peers, which on
-one card are the fabric's threads.  CUDA chunks always go to the kernel, or
-raise; CPU chunks take `ring_all_gather_plain`, the same hop, slot and
-source-index schedule in plain torch on the same per-peer comm buffers (as
-the JAX tests run the Pallas interpreter).
+one card are the fabric's threads.  On one card the kernel computes the
+gather directly (each source byte read once, each output byte written
+once) instead of the reference's ring of hops; `plan_gather` chooses its
+path, tile and grid.  CUDA chunks always go to the kernel, or raise; CPU
+chunks take `ring_all_gather_plain`, the reference kernel's hop schedule in
+plain torch (as the JAX tests run the Pallas interpreter).
 
 `ring_all_gather_kernel(fabric, axis)` puts it behind `Fabric.spmd` like the
 reference's `ring_all_gather_pallas`; `ring_all_gather_reference` is the
 collective it is checked against.  The kernel copies bytes, so it is
-bit-exact for every dtype.
+bit-exact for every dtype and every chunk size.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -29,11 +32,12 @@ from brpc_tpu_torch.parallel.fabric import Fabric, P
 KERNEL = "ring_kernel"      # csrc/<KERNEL>.cu
 WRAPPER = "ring_all_gather"  # its name in _kernels.launches
 
-_VEC = 16          # bytes per vector load/store of the kernel
-_MAX_STRIPES = 64  # stripes per chunk (CTAs per peer)
-_FLAG_WORDS = 8    # flag words per (peer, stripe)
-_WAITS = {1: "entry barrier", 2: "arrival", 3: "capacity grant",
-          4: "exit barrier"}
+# Mirrors of csrc/ring_kernel.cu's limits.
+_MAX_PEERS = 64           # kMaxPeers
+_BULK_WIDTH = 16          # bulk copies need 16-byte addresses and sizes
+_BULK_TILE = 32 * 1024    # kMaxTile: bytes per shared-memory stage
+_RAGGED_TILE = 16 * 1024  # bytes per unit of the ragged path
+_RAGGED_CTAS_PER_SM = 8   # 256-thread CTAs: 2048 threads per SM
 
 
 def ring_all_gather_reference(fabric: Fabric, axis: str = "link"):
@@ -104,13 +108,14 @@ def ring_all_gather(chunks: list) -> list:
 
 
 def ring_all_gather_plain(chunks: list) -> list:
-    """K2's schedule in plain torch, on per-peer comm buffers: own chunk to
-    its output slot and comm[0]; hop 0 puts comm[0] into the right
-    neighbour's comm[1]; hop `step` forwards comm[(step+1)%2] into the
-    right neighbour's comm[step%2] (hop step+1) and then copies it to
-    out[(r - step - 1) mod n].  Within a hop every write goes to a slot no
-    read of that hop touches, so running the peers one after another is the
-    parallel schedule."""
+    """The reference kernel's hop schedule (`_ring_kernel`) in plain torch,
+    on per-peer comm buffers: own chunk to its output slot and comm[0];
+    hop 0 puts comm[0] into the right neighbour's comm[1]; hop `step`
+    forwards comm[(step+1)%2] into the right neighbour's comm[step%2] (hop
+    step+1) and then copies it to out[(r - step - 1) mod n].  Within a hop
+    every write goes to a slot no read of that hop touches, so running the
+    peers one after another is the parallel schedule.  It computes K2's
+    function by another route, so it checks the kernel on the card."""
     _check(chunks)
     n = len(chunks)
     size = _bytes(chunks[0]).numel()
@@ -133,51 +138,54 @@ def ring_all_gather_plain(chunks: list) -> list:
     return outs
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """One launch of K2: `width` 16 takes the bulk path (bulk copies
+    through shared memory), 8, 4, 2 or 1 the ragged path (threads copy
+    `width` bytes at a time).  Each chunk is cut into tiles of
+    `tile_bytes`; a unit is one (source, tile) pair, and `grid` CTAs walk
+    the `units` with a grid stride."""
+
+    width: int
+    tile_bytes: int
+    units: int
+    grid: int
+
+
+def plan_gather(chunk_bytes: int, n: int, addrs, sms: int) -> GatherPlan:
+    """The launch for n chunks of `chunk_bytes` each, given every chunk's
+    and every output's address and the card's SM count.  The width is the
+    widest of 16, 8, 4, 2, 1 that divides the chunk size and every
+    address.  Raises RuntimeError for fewer than 2 or more than 64 peers."""
+    if not 2 <= n <= _MAX_PEERS:
+        raise RuntimeError(f"the ring kernel takes 2 to {_MAX_PEERS} peers, "
+                           f"got {n}")
+    width = _BULK_WIDTH
+    while width > 1 and (chunk_bytes % width
+                         or any(a % width for a in addrs)):
+        width //= 2
+    if width == _BULK_WIDTH:
+        tile, per_sm = min(_BULK_TILE, chunk_bytes), 1
+    else:
+        tile, per_sm = min(_RAGGED_TILE, chunk_bytes), _RAGGED_CTAS_PER_SM
+    units = n * -(-chunk_bytes // tile) if chunk_bytes else 0
+    return GatherPlan(width, tile, units, min(units, per_sm * sms))
+
+
 @functools.cache
 def _lib():
     lib = _kernels.load(KERNEL)
     lib.brpc_ring_all_gather.argtypes = [
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
-        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int,
-        ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_ulonglong,
+        ctypes.c_int, ctypes.c_void_p]
     lib.brpc_ring_all_gather.restype = ctypes.c_int
-    lib.brpc_ring_capacity.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.brpc_ring_capacity.restype = ctypes.c_int
-    lib.brpc_ring_max_peers.argtypes = []
-    lib.brpc_ring_max_peers.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def capacity(device_index: int) -> int:
-    """CTAs of K2 that can be resident at once on the device (0 without
-    cooperative launch)."""
-    ctas = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        rc = _lib().brpc_ring_capacity(ctypes.byref(ctas))
-    if rc != 0:
-        raise RuntimeError(f"ring kernel occupancy query failed: "
-                           f"cudaError {rc}")
-    return ctas.value
-
-
-def stripes_for(chunk_bytes: int, n: int, ctas: int) -> int:
-    """Stripes per chunk: the most (up to _MAX_STRIPES) whose n * stripes
-    CTAs fit in `ctas` and whose bytes split into whole 16-byte vectors.
-    Raises ValueError when a chunk is no whole number of vectors, and
-    RuntimeError when even one CTA per peer cannot be resident."""
-    if chunk_bytes % _VEC:
-        raise ValueError(
-            f"a chunk of {chunk_bytes} bytes does not split into "
-            f"{_VEC}-byte vectors")
-    if ctas < n:
-        raise RuntimeError(
-            f"ring kernel grid cannot be co-resident: {n} peers need "
-            f"{n} CTAs, the device holds {ctas} at once")
-    for s in range(min(_MAX_STRIPES, ctas // n), 0, -1):
-        if chunk_bytes % (_VEC * s) == 0:
-            return s
-    raise AssertionError("unreachable: one stripe always fits")
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _ptrs(tensors) -> ctypes.Array:
@@ -185,33 +193,24 @@ def _ptrs(tensors) -> ctypes.Array:
 
 
 def _launch(chunks: list) -> list:
+    """One launch on the current stream; allocates only the outputs (and a
+    contiguous copy of a chunk that is not contiguous) and never waits for
+    the card."""
     n = len(chunks)
     chunks = [c.contiguous() for c in chunks]
-    chunk_bytes = _bytes(chunks[0]).numel()
-    lib = _lib()
-    if n > lib.brpc_ring_max_peers():
-        raise RuntimeError(f"ring kernel takes at most "
-                           f"{lib.brpc_ring_max_peers()} peers, got {n}")
+    chunk_bytes = chunks[0].numel() * chunks[0].element_size()
     dev = chunks[0].device
-    stripes = stripes_for(chunk_bytes, n, capacity(dev.index or 0))
     outs = _outputs(chunks)
-    comm = torch.empty((n, 2 * chunk_bytes), dtype=torch.uint8, device=dev)
-    flags = torch.empty(n * stripes * _FLAG_WORDS, dtype=torch.int32,
-                        device=dev)
-    err = torch.empty(4, dtype=torch.int32, device=dev)
-    for t in (*chunks, *outs, comm):
-        if t.data_ptr() % _VEC:
-            raise ValueError("ring kernel buffers must be 16-byte aligned")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.brpc_ring_all_gather(
-        _ptrs(chunks), _ptrs(outs), _ptrs(list(comm.unbind(0))), n, stripes,
-        chunk_bytes, flags.data_ptr(), err.data_ptr(), stream)
+    plan = plan_gather(chunk_bytes, n,
+                       [t.data_ptr() for t in (*chunks, *outs)],
+                       _sms(dev.index or 0))
+    if plan.units == 0:  # empty chunks: nothing to copy
+        return outs
+    rc = _lib().brpc_ring_all_gather(
+        _ptrs(chunks), _ptrs(outs), n, chunk_bytes, plan.width,
+        plan.tile_bytes, plan.grid, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ring kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"ring kernel launch failed: cudaError {rc} "
+                           f"({plan})")
     _kernels.count_launch(WRAPPER)
-    kind, peer, hop, stripe = err.tolist()  # waits for the kernel
-    if kind:
-        raise RuntimeError(
-            f"ring kernel stalled: peer {peer} waited past its bound for "
-            f"the {_WAITS.get(kind, kind)} of hop {hop} (stripe {stripe})")
     return outs

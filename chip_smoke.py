@@ -19,10 +19,11 @@ From the root of a checkout it:
 5. times each kernel at 64 MiB with CUDA events beside its bound, its plain
    version and PyTorch calls for the same function, and the D2H landing
    and RPC rates;
-6. holds the ring all-gather kernel (K2) against its plain schedule on the
-   card, every peer's copy, bit-exact, at n = 2, 4, 8 (f32 arange, seeded
-   random bits with NaN patterns, bf16), plus its error contract and an
-   exact launch count;
+6. holds the all-gather kernel (K2) against its plain version on the card,
+   every peer's copy, bit-exact, at n = 2, 4, 8 (f32 arange, seeded random
+   bits with NaN patterns, bf16; 30-byte bf16 chunks, uint8 chunks at odd
+   byte offsets, and a (n*3, 5) bf16 global through the fabric), plus its
+   error contract and an exact launch count;
 7. drives the multi-device path over n = 8 logical peers on the card at the
    reference's headline size (the rdma_performance 64 MiB N-to-N
    exchange), with every launch count reset just before and read just
@@ -30,7 +31,8 @@ From the root of a checkout it:
    full data-plane step on the 2x4 mesh, the stream echo, causal ring
    attention in f32 and bf16 against full attention, and the port's
    dryrun_multichip(8);
-8. times K2 at its main-path shape the way K1 is timed.
+8. times K2 at its main-path shape the way K1 is timed, beside the faster
+   of two PyTorch calls for the same gather.
 
 It prints a `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  It exits non-zero, printing no result,
@@ -150,10 +152,24 @@ def phase_build(log) -> None:
     for name, secs, out in results:
         log(f"build {name}: {secs:.3f} s")
         if name.startswith("kernel"):
-            ptxas = out.with_name(out.name + ".log").read_text()
-            for line in ptxas.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+            for line in ptxas_lines(out.with_name(out.name + ".log")):
+                log(f"  ptxas: {line}")
+
+
+def ptxas_lines(path) -> list:
+    """One line per kernel function of a `-Xptxas -v` report: its
+    registers, static shared memory and spills."""
+    lines, fn, spill = [], None, ""
+    for line in path.read_text().splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spill = line
+        elif "registers" in line and fn:
+            lines.append(f"{fn}: {line.split(':', 1)[1].strip()}; {spill}")
+            fn, spill = None, ""
+    return lines
 
 
 def phase_kernel_vs_plain(dev, log) -> int:
@@ -390,22 +406,45 @@ def _ring_cases(n: int, dev):
             np.float32)).to(dev).to(torch.bfloat16) for _ in range(n)]
 
 
+def _ring_ragged_cases(n: int, dev):
+    """(kind, per-peer chunks) of sizes and offsets that are not 16-byte
+    multiples: separate (3, 5) bf16 chunks (30 bytes), and uint8 chunks of
+    64 KiB + 1 bytes narrowed out of one buffer from byte 1 on (odd
+    offsets, 1-byte copies, several tiles a chunk)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 10 + n)
+    yield "bf16_30_bytes", [
+        torch.from_numpy(rng.integers(-1 << 15, 1 << 15, size=(3, 5),
+                                      dtype=np.int16)).to(dev).view(
+            torch.bfloat16) for _ in range(n)]
+    size = 64 * 1024 + 1
+    buf = torch.from_numpy(rng.integers(0, 256, size=1 + n * size,
+                                        dtype=np.uint8)).to(dev)
+    yield "u8_odd_offset", [buf.narrow(0, 1 + r * size, size)
+                            for r in range(n)]
+
+
 def phase_ring_vs_plain(dev, log) -> int:
-    """K2 against its plain schedule on the card, every peer's copy;
+    """K2 against its plain version on the card, every peer's copy;
     returns the max abs error (of the raw bits)."""
+    import numpy as np
     import torch
 
     from brpc_tpu_torch.ops import _kernels
-    from brpc_tpu_torch.ops.ring_kernel import (WRAPPER, capacity,
+    from brpc_tpu_torch.ops.ring_kernel import (WRAPPER, plan_gather,
                                                 ring_all_gather,
                                                 ring_all_gather_kernel,
                                                 ring_all_gather_plain,
-                                                stripes_for)
+                                                ring_all_gather_reference)
     from brpc_tpu_torch.parallel import Fabric
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err = 0
     for n in (2, 4, 8):
-        for kind, chunks in _ring_cases(n, dev):
+        cases = [*_ring_cases(n, dev), *_ring_ragged_cases(n, dev)]
+        for kind, chunks in cases:
             got = ring_all_gather(chunks)
             want = ring_all_gather_plain(chunks)
             whole = torch.cat([_int_bits(c) for c in chunks])
@@ -415,20 +454,28 @@ def phase_ring_vs_plain(dev, log) -> int:
                 check(err == 0, f"K2 != plain at n={n} {kind} peer {peer}")
                 check(torch.equal(_int_bits(g), whole),
                       f"K2 peer {peer} is not the gather at n={n} {kind}")
-            stripes = stripes_for(chunks[0].numel() *
-                                  chunks[0].element_size(), n,
-                                  capacity(dev.index or 0))
+            plan = plan_gather(chunks[0].numel() * chunks[0].element_size(),
+                               n, [c.data_ptr() for c in chunks], sms)
             log(f"K2 vs plain n={n} {kind:<15}: every peer bit-exact "
-                f"({n} x {stripes} CTAs)")
-    bad = [torch.zeros((3, 5), dtype=torch.bfloat16, device=dev)] * 2
-    try:
-        ring_all_gather(bad)
-    except ValueError:
-        pass
-    else:
-        raise SmokeError("a 30-byte chunk did not raise ValueError")
+                f"(width {plan.width}, tile {plan.tile_bytes} B, "
+                f"{plan.units} units on {plan.grid} CTAs)")
+        # A (n*3, 5) bf16 global through the fabric: chunk r is a view at
+        # byte 30*r, so most chunks are not even 4-byte aligned.
+        ring = Fabric.auto((n,), ("link",), devices=dev)
+        bits = np.random.default_rng(SEED + 20 + n).integers(
+            -1 << 15, 1 << 15, size=(n * 3, 5), dtype=np.int16)
+        global_ = torch.from_numpy(bits).to(dev).view(torch.bfloat16)
+        got = ring_all_gather_kernel(ring, "link")(global_)
+        want = ring_all_gather_reference(ring, "link")(global_)
+        check(torch.equal(_int_bits(got), _int_bits(want))
+              and torch.equal(_int_bits(got), _int_bits(global_)),
+              f"K2 via the fabric on a ({n * 3}, 5) bf16 global")
+        log(f"K2 via Fabric.spmd n={n} ({n * 3}, 5) bf16: bit-exact against "
+            "the all_gather reference")
+    bad = [torch.zeros((3, 5), dtype=torch.bfloat16, device=dev)]
     for what, fn in (
-            ("one peer", lambda: ring_all_gather(bad[:1])),
+            ("one peer", lambda: ring_all_gather(bad)),
+            ("65 peers", lambda: ring_all_gather(bad * 65)),
             ("2-D mesh", lambda: ring_all_gather_kernel(
                 Fabric.auto((2, 4), ("dp", "link"), devices=dev), "link"))):
         try:
@@ -445,8 +492,8 @@ def phase_ring_vs_plain(dev, log) -> int:
     check(_kernels.launches[WRAPPER] == 3,
           f"K2 launch counter {_kernels.launches[WRAPPER]} != 3")
     torch.cuda.synchronize()
-    log("K2 contract: ValueError on a 30-byte chunk, RuntimeError for one "
-        "peer and a 2-D mesh, launch counter exact")
+    log("K2 contract: RuntimeError for one peer, 65 peers and a 2-D mesh, "
+        "launch counter exact")
     return max_err
 
 
@@ -572,38 +619,40 @@ def phase_ring_timing(dev, card: str, log) -> dict:
     chunks = [torch.randn(rows, cols, device=dev) for _ in range(n)]
     stacked = torch.stack(chunks)
     chunk_bytes = rows * cols * 4
-    need = (n + n * n) * chunk_bytes          # read n chunks, write n outputs
-    schedule = n * (4 * n - 1) * chunk_bytes  # what the ring schedule moves
+    need = (n + n * n) * chunk_bytes  # read n chunks, write n outputs
     peak = hbm_peak_gbps(torch.cuda.get_device_name(0))
     bound_ms = None if peak is None else need / (peak * 1e9) * 1e3
-    schedule_ms = None if peak is None else schedule / (peak * 1e9) * 1e3
-
-    def library():  # one PyTorch call for the same function
-        return stacked.view(1, n * rows, cols).repeat(n, 1, 1)
-
+    flat = stacked.view(1, n * rows, cols)
+    # One PyTorch call each for the same function; the faster is the
+    # yardstick.
+    libraries = {
+        "stacked.view(1, n*rows, cols).repeat(n, 1, 1)":
+            lambda: flat.repeat(n, 1, 1),
+        "stacked.view(1, n*rows, cols).expand(n, -1, -1).contiguous()":
+            lambda: flat.expand(n, -1, -1).contiguous(),
+    }
+    turns = [("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
+             ("ms", lambda: ring_all_gather(chunks), 20),
+             *((name, fn, 20) for name, fn in libraries.items()),
+             ("ms", lambda: ring_all_gather(chunks), 20),
+             ("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
+             *((name, fn, 20) for name, fn in reversed(libraries.items()))]
     t = {}
-    for key, fn, iters in (
-            ("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
-            ("ms", lambda: ring_all_gather(chunks), 20),
-            ("library_ms", library, 20),
-            ("ms", lambda: ring_all_gather(chunks), 20),
-            ("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
-            ("library_ms", library, 20)):
+    for key, fn, iters in turns:
         t.setdefault(key, []).append(cuda_ms(fn, iters=iters))
     t = {k: sum(v) / len(v) for k, v in t.items()}
+    library = min(libraries, key=t.get)
     out = {"card": card, "peers": n, "chunk_bytes": chunk_bytes,
            "ms": t["ms"], "plain_ms": t["plain_ms"],
-           "library_ms": t["library_ms"],
-           "library": "stacked.view(1, n*rows, cols).repeat(n, 1, 1)",
-           "bound_ms": bound_ms, "bound_by": "bytes",
-           "bound_bytes": need, "schedule_bytes": schedule,
-           "schedule_bound_ms": schedule_ms,
+           "library_ms": t[library], "library": library,
+           "library_calls_ms": {name: t[name] for name in libraries},
+           "bound_ms": bound_ms, "bound_by": "bytes", "bound_bytes": need,
            "hbm_frac": bound_ms / t["ms"] if bound_ms else None,
-           "schedule_gbps": schedule / (t["ms"] * 1e-3) / 1e9}
+           "kernel_gbps": need / (t["ms"] * 1e-3) / 1e9}
     log(f"K2 n={n} x 8 MiB [{card}]: {t['ms']} ms, bound {bound_ms} ms "
-        f"(bytes, (n+n^2)C), schedule's own bytes {schedule_ms} ms; plain "
-        f"{t['plain_ms']} ms; library {t['library_ms']} ms; hbm_frac "
-        f"{out['hbm_frac']}")
+        f"(bytes, (n+n^2)C); hbm_frac {out['hbm_frac']}; plain "
+        f"{t['plain_ms']} ms; library {t[library]} ms ({library}); "
+        f"library calls {out['library_calls_ms']}")
     return out
 
 

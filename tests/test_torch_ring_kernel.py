@@ -1,9 +1,11 @@
-"""Port parity: the ring all-gather (K2).  On the CPU the wrapper runs the
-kernel's plain schedule, which is held bit-exact against the reference's
-Pallas kernel under the TPU interpreter (as tests/test_kernels.py runs it)
-and against the collective reference.  The CUDA kernel itself runs only on
-a card: chip_smoke.py holds it against the plain schedule there, every
-peer's copy, bit-exact."""
+"""Port parity: the ring all-gather (K2).  On the CPU the wrapper runs its
+plain version (the reference kernel's hop schedule), which is held
+bit-exact against the reference's Pallas kernel under the TPU interpreter
+(as tests/test_kernels.py runs it) and against the collective reference,
+on chunks of any size.  The launch plan (path, width, tile, grid) is plain
+Python and is tested here.  The CUDA kernel itself runs only on a card:
+chip_smoke.py holds it against the plain version there, every peer's copy,
+bit-exact."""
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +23,11 @@ from brpc_tpu_torch.ops.ring_kernel import (WRAPPER, ring_all_gather,
                                             ring_all_gather_kernel,
                                             ring_all_gather_plain,
                                             ring_all_gather_reference,
-                                            stripes_for)
+                                            plan_gather)
 from brpc_tpu_torch.parallel import Fabric
 
 TIMEOUT_S = 60
+MIB = 1 << 20
 
 
 def _ring(n):
@@ -99,21 +102,73 @@ def test_wrapper_checks_its_inputs():
         ring_all_gather([torch.empty(2, 4, device="meta")] * 2)
 
 
-@pytest.mark.parametrize("chunk_bytes,n,ctas,want", [
-    (8 << 20, 8, 1056, 64),   # the smoke's full width: 64 stripes of 128 KiB
-    (4096, 8, 1056, 64),      # the dryrun's 8 x 128 f32 chunk
-    (48, 2, 1056, 3),         # three vectors: three stripes of one
-    (16, 4, 1056, 1),
-    (8 << 20, 8, 200, 16),    # 25 CTAs a peer; 16 divides the vectors
+@pytest.mark.parametrize("chunk_bytes,n,addrs,sms,want", [
+    # the smoke's full width: 8 MiB f32 chunks, bulk path, one CTA per SM
+    (8 << 20, 8, [k << 23 for k in range(16)], 132, (16, 32768, 2048, 132)),
+    # the dryrun's 8 x 128 f32 chunk: one tile a source
+    (4096, 8, [k * 4096 for k in range(16)], 132, (16, 4096, 8, 8)),
+    # a (3, 5) bf16 chunk narrowed out of its global: 2-byte copies
+    (30, 2, [0, 30, 512, 1024], 132, (2, 30, 2, 2)),
+    # a (3, 1) f32 chunk: 4-byte copies
+    (12, 4, [12 * k for k in range(4)] + [512 * k for k in range(4)],
+     132, (4, 12, 4, 4)),
+    # a 16-byte chunk at an odd byte offset: 1-byte copies
+    (16, 2, [1, 17, 512, 1024], 132, (1, 16, 2, 2)),
+    # 8-byte aligned pointers to a chunk of 16-byte multiples
+    (48, 3, [8, 56, 104, 512, 1024, 1536], 132, (8, 48, 3, 3)),
+    # a large ragged chunk: 16 KiB units, 8 CTAs on each of 16 SMs
+    (3 * MIB + 2, 4, [0, 3 * MIB + 2, 6 * MIB + 4, 9 * MIB + 6],
+     16, (2, 16384, 4 * 193, 8 * 16)),
 ])
-def test_stripes_split_chunks_into_whole_vectors(chunk_bytes, n, ctas, want):
-    s = stripes_for(chunk_bytes, n, ctas)
-    assert s == want
-    assert chunk_bytes % (16 * s) == 0 and n * s <= ctas
+def test_plan_chooses_width_tile_and_grid(chunk_bytes, n, addrs, sms, want):
+    plan = plan_gather(chunk_bytes, n, addrs, sms)
+    assert (plan.width, plan.tile_bytes, plan.units, plan.grid) == want
+    assert chunk_bytes % plan.width == 0 and plan.tile_bytes % plan.width == 0
+    assert all(a % plan.width == 0 for a in addrs)
+    assert 1 <= plan.grid <= plan.units
 
 
-def test_stripes_reject_partial_vectors_and_oversized_grids():
-    with pytest.raises(ValueError, match="16-byte vectors"):
-        stripes_for(30, 2, 1056)  # e.g. a (3, 5) bf16 chunk
-    with pytest.raises(RuntimeError, match="co-resident"):
-        stripes_for(4096, 8, 4)
+@pytest.mark.parametrize("chunk_bytes", [16, 30, 4096, 8 << 20, 3 * MIB + 2])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_plan_grid_never_exceeds_the_units(chunk_bytes, sms):
+    for n in (2, 8, 64):
+        plan = plan_gather(chunk_bytes, n, [0], sms)
+        assert plan.units == n * -(-chunk_bytes // plan.tile_bytes)
+        assert 1 <= plan.grid <= min(plan.units, 8 * sms)
+
+
+def test_plan_rejects_more_than_64_peers():
+    with pytest.raises(RuntimeError, match="2 to 64 peers"):
+        plan_gather(4096, 65, [0], 132)
+    with pytest.raises(RuntimeError, match="2 to 64 peers"):
+        plan_gather(4096, 1, [0], 132)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [2, 3])
+def test_chunks_of_any_size_match_pallas_interpret(n, dtype):
+    """(3, 5) chunks (30 bytes in bf16, 60 in f32: no whole number of
+    16-byte vectors, narrowed at offsets that are not 16-byte aligned) go
+    through the port as through the reference's Pallas kernel."""
+    jfab = JFabric.auto((n,), ("link",), devices=jax.devices()[:n])
+    arr = np.random.default_rng(20 + n).standard_normal((3 * n, 5)).astype(
+        np.float32)
+    jarr = jnp.asarray(arr, dtype=getattr(jnp, dtype))
+    want = np.asarray(ring_all_gather_pallas(jfab, "link", interpret=True)(
+        jarr).astype(jnp.float32))
+    global_ = tensor_from_numpy(arr, "cpu").to(getattr(torch, dtype))
+    got = ring_all_gather_kernel(_ring(n), "link")(global_)
+    assert got.dtype == global_.dtype and got.shape == (3 * n, 5)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    np.testing.assert_array_equal(_bits(got), _bits(global_))
+    np.testing.assert_array_equal(
+        _bits(ring_all_gather_reference(_ring(n), "link")(global_)),
+        _bits(got))
+    np.testing.assert_array_equal(
+        np.asarray(jax_ring_reference(jfab, "link")(jarr).astype(
+            jnp.float32)), want)
+    chunk_bytes = 3 * 5 * global_.element_size()
+    plan = plan_gather(chunk_bytes, n,
+                       [global_.data_ptr() + r * chunk_bytes
+                        for r in range(n)], 132)
+    assert plan.width == (2 if dtype == "bfloat16" else 4)
