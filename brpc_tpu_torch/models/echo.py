@@ -4,6 +4,10 @@
   as in the reference.
 - ``rpc_echo_step`` → the device → RPC stack → device leg of bench.py's
   rpc child (bench.py:207-357) as one call: the echo data plane end to end.
+- ``EchoPipeline`` and ``rpc_batch_echo_step`` → the device side of
+  bench.py's pipelined batch leg (``_rpc_batch_goodput``,
+  bench.py:396-520): a window of calls in flight on a batch pipeline,
+  responses landing in the caller's buffers, each checked on the device.
 - ``make_nton_exchange`` → example/rdma_performance N-to-N 64MB exchange,
   over the logical peers of a Fabric.
 - ``make_ring_exchange`` → the explicit ring variant of that exchange.
@@ -16,10 +20,12 @@ from __future__ import annotations
 import torch
 
 from brpc_tpu_torch.ops.checksum import sum32
-from brpc_tpu_torch.ops.echo_kernel import echo_fused
+from brpc_tpu_torch.ops.echo_kernel import _COLS, _ROWS, echo_fused
 from brpc_tpu_torch.parallel import collectives as coll
 from brpc_tpu_torch.parallel.fabric import Fabric, P
 from brpc_tpu_torch.rpc import zerocopy
+from brpc_tpu_torch.rpc.client import make_rpc_error
+from brpc_tpu_torch.rpc.rma import RmaBuffer
 from brpc_tpu_torch.transport.ici import IciTransport, _ring_perm
 
 
@@ -59,6 +65,128 @@ def rpc_echo_step(channel, payload: torch.Tensor, method: str = "Echo.Echo",
     back = back.view(torch.uint32)
     _, got = echo_fused(back)
     return back, sent, got
+
+
+class EchoPipeline:
+    """The echo data plane as a windowed pipeline: the device side of
+    bench.py's batch goodput leg.
+
+    On the payload's device, one fused pass (K1, `echo_fused`) makes the
+    response copy and the sent checksum once.  `submit(k)` puts k calls of
+    that copy on a batch pipeline over `channel` (one D2H copy into pinned
+    memory per submit for a GPU payload), each response landing in one of
+    the caller's `resp_bufs`: uint8 CPU tensors (pinned for a GPU payload)
+    or `RmaBuffer`s (CUDA-registered for a GPU payload).  `poll()` drains
+    completions with the GIL released, copies each landed response back to
+    the device (non_blocking) and checksums it there with K1, returning
+    (echoed tensor, echoed checksum) pairs.  A landing buffer goes back to
+    the free list with an event recorded after its H2D copy, and is reused
+    only once that event has completed.  A failed member raises its typed
+    error.  `rows`/`cols` are echo_fused's tile contract (a 1 KiB payload
+    passes rows=1, cols=256)."""
+
+    def __init__(self, channel, payload: torch.Tensor, resp_bufs,
+                 method: str = "Echo.Echo", timeout_ms: int = 0,
+                 rows: int = _ROWS, cols: int = _COLS):
+        self._tile = (rows, cols)
+        self.copy, self.sent = echo_fused(payload, rows, cols)
+        self.device = payload.device
+        self.nbytes = self.copy.numel() * 4
+        self._lib = channel._lib
+        self._method = method
+        self._timeout_ms = timeout_ms
+        for buf in resp_bufs:
+            if _landing(buf).numel() < self.nbytes:
+                raise ValueError(f"a landing buffer is smaller than the "
+                                 f"{self.nbytes}-byte response")
+        self._free = [(buf, None) for buf in resp_bufs]
+        self._inflight: dict[int, object] = {}
+        self._pipe = channel.pipeline()
+
+    @property
+    def inflight(self) -> int:
+        return len(self._inflight)
+
+    def _take(self):
+        buf, copied = self._free.pop()
+        if copied is not None:
+            copied.synchronize()  # the H2D copy that read it is done
+        return buf
+
+    def submit(self, k: int) -> None:
+        """Puts k more calls in flight; needs k free landing buffers."""
+        if k > len(self._free):
+            raise ValueError(f"{k} calls but {len(self._free)} free "
+                             "landing buffers")
+        bufs = [self._take() for _ in range(k)]
+        tokens = self._pipe.submit(self._method, [self.copy] * k,
+                                   resp_bufs=bufs,
+                                   timeout_ms=self._timeout_ms)
+        self._inflight.update(zip(tokens, bufs))
+
+    def poll(self, max_n: int = 64, timeout_ms: int = -1):
+        """[(echoed uint32 tensor on the payload's device, its K1 checksum
+        as a 0-dim uint32 tensor)] for the completions drained."""
+        out = []
+        for c in self._pipe.poll(max_n=max_n, timeout_ms=timeout_ms):
+            buf = self._inflight.pop(c.token)
+            if not c.ok:
+                self._free.append((buf, None))
+                raise make_rpc_error(self._lib, c.status, c.error)
+            if not c.in_caller_buffer or c.resp_len != self.nbytes:
+                self._free.append((buf, None))
+                raise RuntimeError(
+                    f"echo returned {c.resp_len} bytes for {self.nbytes} "
+                    f"(in caller buffer: {c.in_caller_buffer})")
+            landed = _landing(buf)[:self.nbytes].view(torch.int32)
+            back = landed.to(self.device, non_blocking=True, copy=True)
+            copied = None
+            if back.is_cuda:
+                copied = torch.cuda.Event()
+                copied.record()
+            self._free.append((buf, copied))
+            back = back.view(torch.uint32)
+            _, got = echo_fused(back, *self._tile)
+            out.append((back, got))
+        return out
+
+    def close(self) -> None:
+        self._pipe.close()
+        for _, copied in self._free:
+            if copied is not None:
+                copied.synchronize()
+
+
+def _landing(buf) -> torch.Tensor:
+    """The flat uint8 CPU tensor a response lands in."""
+    if isinstance(buf, RmaBuffer):
+        return buf.tensor
+    if buf.device.type != "cpu" or buf.dtype != torch.uint8:
+        raise ValueError("landing buffers are uint8 CPU tensors or "
+                         "RmaBuffers")
+    return buf.reshape(-1)
+
+
+def rpc_batch_echo_step(channel, payload: torch.Tensor, depth: int,
+                        resp_bufs, method: str = "Echo.Echo",
+                        timeout_ms: int = 0, rows: int = _ROWS,
+                        cols: int = _COLS):
+    """One window of the pipelined echo data plane: K1 makes the copy and
+    the sent checksum on the payload's device, `depth` calls of it go out
+    on a batch pipeline at once, the responses land in `resp_bufs` (at
+    least `depth` of them), come back to the device and are checksummed
+    there by K1.  Returns (echoed tensors, sent checksum, echoed
+    checksums); the tensors are on the payload's device."""
+    pipe = EchoPipeline(channel, payload, resp_bufs, method=method,
+                        timeout_ms=timeout_ms, rows=rows, cols=cols)
+    try:
+        pipe.submit(depth)
+        echoed = []
+        while pipe.inflight:
+            echoed += pipe.poll(max_n=depth)
+    finally:
+        pipe.close()
+    return [b for b, _ in echoed], pipe.sent, [g for _, g in echoed]
 
 
 def make_nton_exchange(fabric: Fabric, axis: str = "link"):

@@ -27,7 +27,6 @@ import threading
 import torch
 
 from brpc_tpu_torch.rpc._lib import load_library
-from brpc_tpu_torch.rpc.client import RpcError
 
 _DELETER_T = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_void_p)
 
@@ -142,6 +141,10 @@ def _call_buf(channel, method: str, tensor: torch.Tensor, timeout_ms: int,
         rc = lib.trpc_channel_call_buf(channel._ptr, method.encode(), req,
                                        resp, timeout_ms, err, len(err))
         if rc != 0:
+            # A plain RpcError, as the reference's call_zero_copy raises
+            # (lazily imported: client imports batch, which imports us).
+            from brpc_tpu_torch.rpc.client import RpcError
+
             raise RpcError(rc, err.value.decode(errors="replace"))
         return receive(lib, resp, lib.trpc_iobuf_size(resp))
     finally:
@@ -253,6 +256,8 @@ def bench_echo(payload: torch.Tensor, transport: str, iters: int,
         None if resp is None else resp.data_ptr(), ctypes.byref(gbps), used,
         len(used), err, len(err))
     if rc != 0:
+        from brpc_tpu_torch.rpc.client import RpcError
+
         raise RpcError(rc, err.value.decode(errors="replace"))
     return gbps.value, used.value.decode()
 

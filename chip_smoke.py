@@ -32,7 +32,16 @@ From the root of a checkout it:
    attention in f32 and bf16 against full attention, and the port's
    dryrun_multichip(8);
 8. times K2 at its main-path shape the way K1 is timed, beside the faster
-   of two PyTorch calls for the same gather.
+   of two PyTorch calls for the same gather;
+9. drives the pipelined RPC plane from device tensors (`EchoPipeline`,
+   `rpc_batch_echo_step` over the batch pipeline), with every launch count
+   reset just before and read just after: a 64 MiB payload at depth 8 over
+   pooled tcp landing in pinned tensors and over shm landing in
+   CUDA-registered RmaBuffers (stamped rma or copy), and a 1 KiB payload
+   at depth 256 over one connection; one warm window, then ~1 s of the
+   windowed refill loop, every landed response checksummed on the card by
+   K1; then the request pins drain to 0, an exhausted deadline_scope raises
+   DeadlineExpiredError, and an inference server streams 4 prompts to EOS.
 
 It prints a `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  It exits non-zero, printing no result,
@@ -63,6 +72,10 @@ STEP_PAYLOAD = (16384, 1024)  # f32 payload of the data-plane step: 64 MiB
 STREAM_CHUNKS = 16         # stream echo: chunks of 4 MiB per peer
 STREAM_LANES = MIB         # uint32 lanes per peer per chunk
 ATTN = (8, 8192, 128)      # ring attention: batch*heads, seq, head_dim
+BATCH_DEPTH = 8            # 64 MiB calls in flight on the batch legs
+SMALL_BYTES = 1024         # the 1 KiB batch leg (bench.py:183-184) ...
+SMALL_DEPTH = 256          # ... at depth 256
+BATCH_SECONDS = 1.0        # the windowed refill loop of each batch leg
 # The H100 SXM's 32-bit integer add rate for the operations bound on K1's
 # n adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12 adds/s.  It
 # never binds (the bytes bound is ~40x larger), but it is the other half
@@ -656,6 +669,233 @@ def phase_ring_timing(dev, card: str, log) -> dict:
     return out
 
 
+def observe_snapshot() -> dict:
+    """The attribution vars of bench.py's batch rows (bench.py:360-393),
+    read through the port's observe module; absent ones are left out."""
+    from brpc_tpu_torch.rpc import observe
+
+    v = observe.Vars.dump()
+    out = {}
+    if v.get("socket_inline_write_attempts"):
+        out["inline_write_ratio"] = (v.get("socket_inline_write_hits", 0)
+                                     / v["socket_inline_write_attempts"])
+    for var, key, field in (
+            ("messenger_dispatch_batch", "dispatch_batch_p50", "p50_us"),
+            ("rpc_server_Echo.Echo", "server_echo_p99_us", "p99_us"),
+            ("rpc_client_batch", "client_batch_p99_us", "p99_us")):
+        try:
+            out[key] = getattr(observe.Latency.read(var), field)
+        except KeyError:
+            pass
+    for name in ("batch_depth", "batch_inflight"):
+        if isinstance(v.get(name), (int, float)):
+            out[name] = v[name]
+    return out
+
+
+def _batch_leg(ch, payload, depth: int, bufs, tile) -> dict:
+    """One warm window (`rpc_batch_echo_step`), then BATCH_SECONDS of the
+    windowed refill loop of bench.py:458-479 (poll k, resubmit k) on an
+    EchoPipeline.  Every landed response is checksummed on the card by K1
+    against the sent checksum; the first and last are compared whole."""
+    import torch
+
+    from brpc_tpu_torch.models.echo import EchoPipeline, rpc_batch_echo_step
+
+    def same(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    echoed, sent, got = rpc_batch_echo_step(ch, payload, depth, bufs,
+                                            rows=tile[0], cols=tile[1])
+    check(len(echoed) == depth, f"warm window: {len(echoed)} of {depth}")
+    check(all(u32(g) == u32(sent) for g in got),
+          "warm window: an echoed checksum differs from the sent one")
+    check(same(echoed[0], payload) and same(echoed[-1], payload),
+          "warm window: an echoed tensor differs from the payload")
+    del echoed
+    pipe = EchoPipeline(ch, payload, bufs, rows=tile[0], cols=tile[1])
+    sums, first, last, submits, completed = [], None, None, 1, 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.submit(depth)
+        refilling = True
+        while pipe.inflight:
+            out = pipe.poll(max_n=depth, timeout_ms=60000)
+            check(bool(out), "batch leg wedged: no completion in 60 s")
+            for back, csum in out:
+                sums.append(csum.view(torch.int32))
+                first = back if first is None else first
+                last = back
+            completed += len(out)
+            refilling = refilling and (
+                time.perf_counter() - t0 < BATCH_SECONDS)
+            if refilling:
+                pipe.submit(len(out))
+                submits += 1
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        pipe.close()
+    check(bool((torch.stack(sums) == pipe.sent.view(torch.int32)).all()),
+          "refill loop: an echoed checksum differs from the sent one")
+    check(same(first, payload) and same(last, payload),
+          "refill loop: the first or last echoed tensor differs")
+    return {"goodput_gbps": pipe.nbytes * completed / secs / 1e9,
+            "calls": completed, "submits": submits, "seconds": secs,
+            "depth": depth, "bytes": pipe.nbytes,
+            "checked_on_device": completed + depth}
+
+
+def phase_batch_path(dev, card: str, log) -> dict:
+    """The pipelined RPC plane from device tensors: batch legs over tcp,
+    shm (RMA landing) and a 1 KiB window, then the pin, deadline and
+    inference checks."""
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch import payload_from_numpy
+    from brpc_tpu_torch.rpc import (Channel, DeadlineExpiredError,
+                                    InferClient, RmaBuffer, Server,
+                                    deadline_scope, get_flag, observe)
+    from brpc_tpu_torch.rpc.batch import pinned_requests
+
+    rng = np.random.default_rng(SEED + 3)
+    payload = payload_from_numpy(rng.integers(
+        0, 1 << 32, size=MAIN_BYTES // 4, dtype=np.uint32), dev)
+    small = payload_from_numpy(rng.integers(
+        0, 1 << 32, size=SMALL_BYTES // 4, dtype=np.uint32), dev)
+    # The RMA landing buffers and each shm connection's two receive
+    # windows live in /dev/shm: fail plainly if they cannot fit there.
+    st = os.statvfs("/dev/shm")
+    need = BATCH_DEPTH * MAIN_BYTES + 2 * int(
+        get_flag("trpc_rma_window_bytes"))
+    check(st.f_bavail * st.f_frsize >= need,
+          f"/dev/shm has {st.f_bavail * st.f_frsize} bytes free, the shm "
+          f"leg needs {need}")
+    out = {"card": card, "legs": {}}
+    srv = Server()
+    srv.register_native_echo("Echo.Echo")
+    port = srv.start(0)
+    addr = f"127.0.0.1:{port}"
+    try:
+        # tcp: pooled connections, responses landing in pinned tensors.
+        bufs = [torch.empty(MAIN_BYTES, dtype=torch.uint8, pin_memory=True)
+                for _ in range(BATCH_DEPTH)]
+        ch = Channel(addr, timeout_ms=60000, connection_type="pooled")
+        try:
+            leg = _batch_leg(ch, payload, BATCH_DEPTH, bufs, (16, 8192))
+            leg["transport"] = "tcp, pooled"
+        finally:
+            ch.close()
+        # What the host copies cost beside the window: one D2H of the
+        # payload into pinned memory per submit, one H2D per response.
+        host = bufs[0]
+        d2h_ms = cuda_ms(lambda: host.copy_(payload.view(torch.uint8),
+                                            non_blocking=True), iters=10)
+        h2d_ms = cuda_ms(lambda: host.to(dev, non_blocking=True), iters=10)
+        leg.update(d2h_ms=d2h_ms, h2d_ms=h2d_ms, host_copy_share=(
+            leg["submits"] * d2h_ms + leg["calls"] * h2d_ms)
+            / (leg["seconds"] * 1e3))
+        leg["vars"] = observe_snapshot()
+        out["legs"]["tcp"] = leg
+        del bufs, host
+
+        # shm: responses landing in CUDA-registered RmaBuffers.
+        rma0 = int(observe.Vars.dump().get("rma_rx_msgs", 0))
+        lands = [RmaBuffer(MAIN_BYTES, device=dev)
+                 for _ in range(BATCH_DEPTH)]
+        try:
+            check(all(b.cuda_registered for b in lands),
+                  "an RmaBuffer is not registered with the CUDA driver")
+            ch = Channel(addr, timeout_ms=60000, use_shm=True)
+            try:
+                leg = _batch_leg(ch, payload, BATCH_DEPTH, lands,
+                                 (16, 8192))
+                leg["transport"] = ch.transport
+            finally:
+                ch.close()
+        finally:
+            for b in lands:
+                b.free()
+        rma = int(observe.Vars.dump().get("rma_rx_msgs", 0)) - rma0
+        leg.update(rma_rx_msgs=rma, path="rma" if rma > 0 else "copy",
+                   vars=observe_snapshot())
+        out["legs"]["shm"] = leg
+
+        # 1 KiB at depth 256 over one connection, under the (1, 256) tile.
+        bufs = [torch.empty(SMALL_BYTES, dtype=torch.uint8, pin_memory=True)
+                for _ in range(SMALL_DEPTH)]
+        ch = Channel(addr, timeout_ms=60000, connection_type="single")
+        try:
+            leg = _batch_leg(ch, small, SMALL_DEPTH, bufs,
+                             (1, SMALL_BYTES // 4))
+            leg["transport"] = ch.transport
+        finally:
+            ch.close()
+        leg["vars"] = observe_snapshot()
+        out["legs"]["1kib"] = leg
+        del bufs
+        for name, leg in out["legs"].items():
+            log(f"batch {name} ({leg['transport']}"
+                f"{', ' + leg['path'] if 'path' in leg else ''}) [{card}]: "
+                f"{leg['calls']} x {leg['bytes']} B at depth {leg['depth']} "
+                f"in {leg['seconds']:.3f} s, {leg['goodput_gbps']} GB/s; "
+                f"{leg['checked_on_device']} responses checked by K1; "
+                f"vars {json.dumps(leg['vars'])}")
+        tcp = out["legs"]["tcp"]
+        log(f"batch tcp host copies of 64 MiB: D2H {tcp['d2h_ms']} ms, H2D "
+            f"{tcp['h2d_ms']} ms, share of the loop "
+            f"{tcp['host_copy_share']}")
+
+        deadline = time.monotonic() + 10
+        while pinned_requests() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out["pinned_requests_after"] = pinned_requests()
+        check(out["pinned_requests_after"] == 0,
+              f"{pinned_requests()} request pins left after the pipelines "
+              "closed")
+
+        ch = Channel(addr, timeout_ms=5000)
+        try:
+            with deadline_scope(0.001):
+                time.sleep(0.005)
+                try:
+                    ch.call("Echo.Echo", b"late")
+                except DeadlineExpiredError as e:
+                    out["deadline_code"] = e.code
+            check(out.get("deadline_code") == 2007,
+                  "a call under an exhausted deadline_scope did not raise "
+                  "DeadlineExpiredError")
+        finally:
+            ch.close()
+    finally:
+        srv.close()
+
+    srv = Server()
+    srv.enable_infer(prefix_cache=False)
+    port = srv.start(0)
+    ch = Channel(f"127.0.0.1:{port}", timeout_ms=5000)
+    try:
+        client = InferClient(ch)
+        streams = []
+        for i in range(4):
+            recs = list(client.submit([i * 1000 + j for j in range(8)],
+                                      max_new_tokens=16,
+                                      timeout_ms=30000).records())
+            check(len(recs) == 16 and recs[-1].eos
+                  and [r.index for r in recs] == list(range(16)),
+                  f"prompt {i}: {len(recs)} token records, no EOS")
+            streams.append([r.token for r in recs])
+        out["infer_tokens"] = [len(s) for s in streams]
+    finally:
+        ch.close()
+        srv.close()
+    log(f"pins drained to 0; deadline_scope -> DeadlineExpiredError "
+        f"({out['deadline_code']}); infer: 4 prompts x 16 tokens to EOS")
+    return out
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -699,19 +939,28 @@ def run(out_path: str | None) -> int:
     log(f"multi-device path launches: {ring_launches}")
 
     ring_timing = phase_ring_timing(dev, card, log)
+
+    _kernels.reset_launches()
+    batch = phase_batch_path(dev, card, log)
+    batch_launches = dict(_kernels.launches)
+    check(batch_launches.get(WRAPPER, 0) > 0,
+          f"batch path launched {WRAPPER} no time")
+    log(f"batch path launches: {batch_launches}")
     timing_line = dict(timing, rpc_gbps=main["rpc_gbps"],
                        transport=main["transport"],
                        d2h_land_gbps=main["d2h_land_gbps"],
                        ici_zero_copy=main["ici_zero_copy"],
                        roundtrip_verified=main["roundtrip_verified"],
                        ring=dict(ring_timing, **multi),
+                       batch=batch,
                        wall_s=time.perf_counter() - t0)
     log("timing: " + json.dumps(timing_line))
     kernels = {"kernels": [{
         "name": WRAPPER, "route": "cuda",
         "source": "brpc_tpu_torch/csrc/echo_kernel.cu",
         "replaces": "brpc_tpu/ops/echo_kernel.py:26",
-        "launches": launches[WRAPPER], "max_abs_err": max_err,
+        "launches": launches[WRAPPER] + batch_launches[WRAPPER],
+        "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {
