@@ -24,8 +24,8 @@ from brpc_tpu_torch.ops.echo_kernel import _COLS, _ROWS, echo_fused
 from brpc_tpu_torch.parallel import collectives as coll
 from brpc_tpu_torch.parallel.fabric import Fabric, P
 from brpc_tpu_torch.rpc import zerocopy
+from brpc_tpu_torch.rpc.batch import _landing_bytes
 from brpc_tpu_torch.rpc.client import make_rpc_error
-from brpc_tpu_torch.rpc.rma import RmaBuffer
 from brpc_tpu_torch.transport.ici import IciTransport, _ring_perm
 
 
@@ -75,15 +75,17 @@ class EchoPipeline:
     response copy and the sent checksum once.  `submit(k)` puts k calls of
     that copy on a batch pipeline over `channel` (one D2H copy into pinned
     memory per submit for a GPU payload), each response landing in one of
-    the caller's `resp_bufs`: uint8 CPU tensors (pinned for a GPU payload)
-    or `RmaBuffer`s (CUDA-registered for a GPU payload).  `poll()` drains
-    completions with the GIL released, copies each landed response back to
-    the device (non_blocking) and checksums it there with K1, returning
-    (echoed tensor, echoed checksum) pairs.  A landing buffer goes back to
-    the free list with an event recorded after its H2D copy, and is reused
-    only once that event has completed.  A failed member raises its typed
-    error.  `rows`/`cols` are echo_fused's tile contract (a 1 KiB payload
-    passes rows=1, cols=256)."""
+    the caller's `resp_bufs` (any `Batch.submit` takes: CPU tensors, pinned
+    for a GPU payload, or `RmaBuffer`s, CUDA-registered for a GPU payload).
+    `poll()` drains completions with the GIL released, copies each landed
+    response back to the device (non_blocking) and checksums it there with
+    K1, returning (echoed tensor, echoed checksum) pairs.  A landing buffer
+    goes back to the free list with an event recorded after its H2D copy,
+    and is reused only once that event has completed.  A failed member
+    raises its typed error once the rest of the drained completions are
+    accounted for; its landing buffer is retired, never reused, since a
+    late server-side put may still reach an RmaBuffer.  `rows`/`cols` are
+    echo_fused's tile contract (a 1 KiB payload passes rows=1, cols=256)."""
 
     def __init__(self, channel, payload: torch.Tensor, resp_bufs,
                  method: str = "Echo.Echo", timeout_ms: int = 0,
@@ -96,7 +98,7 @@ class EchoPipeline:
         self._method = method
         self._timeout_ms = timeout_ms
         for buf in resp_bufs:
-            if _landing(buf).numel() < self.nbytes:
+            if _landing_bytes(buf).size < self.nbytes:
                 raise ValueError(f"a landing buffer is smaller than the "
                                  f"{self.nbytes}-byte response")
         self._free = [(buf, None) for buf in resp_bufs]
@@ -126,19 +128,22 @@ class EchoPipeline:
 
     def poll(self, max_n: int = 64, timeout_ms: int = -1):
         """[(echoed uint32 tensor on the payload's device, its K1 checksum
-        as a 0-dim uint32 tensor)] for the completions drained."""
-        out = []
+        as a 0-dim uint32 tensor)] for the completions drained.  Raises the
+        first failure among them after handling all of them."""
+        out, error = [], None
         for c in self._pipe.poll(max_n=max_n, timeout_ms=timeout_ms):
             buf = self._inflight.pop(c.token)
-            if not c.ok:
-                self._free.append((buf, None))
-                raise make_rpc_error(self._lib, c.status, c.error)
+            if not c.ok:  # retired: the buffer leaves the free list
+                error = error or make_rpc_error(self._lib, c.status, c.error)
+                continue
             if not c.in_caller_buffer or c.resp_len != self.nbytes:
                 self._free.append((buf, None))
-                raise RuntimeError(
+                error = error or RuntimeError(
                     f"echo returned {c.resp_len} bytes for {self.nbytes} "
                     f"(in caller buffer: {c.in_caller_buffer})")
-            landed = _landing(buf)[:self.nbytes].view(torch.int32)
+                continue
+            landed = torch.from_numpy(
+                _landing_bytes(buf)[:self.nbytes]).view(torch.int32)
             back = landed.to(self.device, non_blocking=True, copy=True)
             copied = None
             if back.is_cuda:
@@ -148,6 +153,8 @@ class EchoPipeline:
             back = back.view(torch.uint32)
             _, got = echo_fused(back, *self._tile)
             out.append((back, got))
+        if error is not None:
+            raise error
         return out
 
     def close(self) -> None:
@@ -155,16 +162,6 @@ class EchoPipeline:
         for _, copied in self._free:
             if copied is not None:
                 copied.synchronize()
-
-
-def _landing(buf) -> torch.Tensor:
-    """The flat uint8 CPU tensor a response lands in."""
-    if isinstance(buf, RmaBuffer):
-        return buf.tensor
-    if buf.device.type != "cpu" or buf.dtype != torch.uint8:
-        raise ValueError("landing buffers are uint8 CPU tensors or "
-                         "RmaBuffers")
-    return buf.reshape(-1)
 
 
 def rpc_batch_echo_step(channel, payload: torch.Tensor, depth: int,

@@ -9,8 +9,9 @@ From the root of a checkout it:
    (build/libtpurpc.so) from the sources, in parallel, and prints each
    build time and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card,
-   bit-exact, at the main path's sizes (1, 16 and 64 MiB; arange, seeded
-   random and all-0xFFFFFFFF payloads), plus its error contract;
+   bit-exact, at the main path's sizes (1 KiB under the batch path's
+   (1, 256) tile, 1, 16 and 64 MiB; arange, seeded random and
+   all-0xFFFFFFFF payloads), plus its error contract;
 3. runs the single-chip echo step of `graft_entry.entry()` and at 64 MiB;
 4. drives the main path — the 64 MiB echo data plane, device → RPC stack →
    device, verified on the device — over tcp, shm and the ici staging leg
@@ -39,7 +40,8 @@ From the root of a checkout it:
    pooled tcp landing in pinned tensors and over shm landing in
    CUDA-registered RmaBuffers (stamped rma or copy), and a 1 KiB payload
    at depth 256 over one connection; one warm window, then ~1 s of the
-   windowed refill loop, every landed response checksummed on the card by
+   windowed refill loop, each sent checksum held bit-exact against the
+   plain version's and every landed response checksummed on the card by
    K1; then the request pins drain to 0, an exhausted deadline_scope raises
    DeadlineExpiredError, and an inference server streams 4 prompts to EOS.
 
@@ -194,20 +196,22 @@ def phase_kernel_vs_plain(dev, log) -> int:
                                                 echo_reference)
 
     max_err = 0
-    for mib in SIZES_MIB:
-        lanes = mib * MIB // 4
-        for kind, p, want in payloads(lanes, dev):
-            copy, csum = echo_fused(p)
+    shapes = [(SMALL_BYTES, (1, SMALL_BYTES // 4))] + [
+        (mib * MIB, (16, 8192)) for mib in SIZES_MIB]
+    for nbytes, tile in shapes:
+        size = f"{nbytes // MIB} MiB" if nbytes >= MIB else f"{nbytes} B"
+        for kind, p, want in payloads(nbytes // 4, dev):
+            copy, csum = echo_fused(p, *tile)
             ref_copy, ref_sum = echo_reference(p)
             torch.cuda.synchronize()
             diff = (copy.view(torch.int32).to(torch.int64) & MASK) - (
                 ref_copy.view(torch.int32).to(torch.int64) & MASK)
             err = max(int(diff.abs().max()), abs(u32(csum) - u32(ref_sum)))
             max_err = max(max_err, err)
-            check(err == 0, f"K1 != plain at {mib} MiB {kind} (err {err})")
+            check(err == 0, f"K1 != plain at {size} {kind} (err {err})")
             check(u32(csum) == want,
-                  f"K1 checksum {u32(csum)} != {want} at {mib} MiB {kind}")
-            log(f"K1 vs plain {mib:>2} MiB {kind:<8}: bit-exact, "
+                  f"K1 checksum {u32(csum)} != {want} at {size} {kind}")
+            log(f"K1 vs plain {size:>6} tile {tile} {kind:<8}: bit-exact, "
                 f"sum32={u32(csum)}")
     try:
         echo_fused(torch.zeros(100, dtype=torch.int32, device=dev).view(
@@ -696,17 +700,23 @@ def observe_snapshot() -> dict:
 def _batch_leg(ch, payload, depth: int, bufs, tile) -> dict:
     """One warm window (`rpc_batch_echo_step`), then BATCH_SECONDS of the
     windowed refill loop of bench.py:458-479 (poll k, resubmit k) on an
-    EchoPipeline.  Every landed response is checksummed on the card by K1
-    against the sent checksum; the first and last are compared whole."""
+    EchoPipeline.  Each sent checksum (K1's) is held bit-exact against the
+    plain version's on the same payload; every landed response is
+    checksummed on the card by K1 against it; the first and last are
+    compared whole."""
     import torch
 
     from brpc_tpu_torch.models.echo import EchoPipeline, rpc_batch_echo_step
+    from brpc_tpu_torch.ops.echo_kernel import echo_reference
 
     def same(a, b) -> bool:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
+    plain_sum = u32(echo_reference(payload)[1])
     echoed, sent, got = rpc_batch_echo_step(ch, payload, depth, bufs,
                                             rows=tile[0], cols=tile[1])
+    check(u32(sent) == plain_sum,
+          f"warm window: K1's sent checksum {u32(sent)} != plain {plain_sum}")
     check(len(echoed) == depth, f"warm window: {len(echoed)} of {depth}")
     check(all(u32(g) == u32(sent) for g in got),
           "warm window: an echoed checksum differs from the sent one")
@@ -716,6 +726,8 @@ def _batch_leg(ch, payload, depth: int, bufs, tile) -> dict:
     pipe = EchoPipeline(ch, payload, bufs, rows=tile[0], cols=tile[1])
     sums, first, last, submits, completed = [], None, None, 1, 0
     try:
+        check(u32(pipe.sent) == plain_sum and same(pipe.copy, payload),
+              "refill loop: K1's copy or sent checksum differs from plain")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.submit(depth)

@@ -8,6 +8,7 @@ viewed as tensors."""
 
 import errno
 import gc
+import itertools
 import threading
 import time
 
@@ -64,6 +65,26 @@ def server():
     srv.start(0)
     yield srv
     srv.close()
+
+
+@pytest.fixture
+def second_fails_server():
+    """An echo server that rejects the second call it receives."""
+    srv = port.Server()
+    calls = itertools.count()
+
+    def second_fails(call, req):
+        if next(calls) == 1:
+            call.respond(error_code=7, error_text="second member rejected")
+        else:
+            call.respond(req)
+
+    srv.register("Echo.SecondFails", second_fails)
+    srv.start(0)
+    try:
+        yield srv
+    finally:
+        srv.close()
 
 
 @pytest.fixture
@@ -521,3 +542,59 @@ def test_echo_pipeline_refill_and_typed_failure(server):
     finally:
         failing.close()
         ch.close()
+
+
+@pytest.mark.parametrize("landing", ["tensor", "rma"])
+def test_echo_pipeline_failure_mid_poll(second_fails_server, landing,
+                                       monkeypatch):
+    """One member fails among four completions drained by one poll, placed
+    second of the four: the poll handles all four before it raises the
+    typed error, the failed member's landing buffer is retired (a late put
+    may still reach an RmaBuffer), and the pipeline goes on with the other
+    three."""
+    arr = np.random.default_rng(23).integers(0, 1 << 32, size=256,
+                                             dtype=np.uint32)
+    payload = payload_from_numpy(arr, "cpu")
+    if landing == "rma":
+        bufs = [port.RmaBuffer(arr.nbytes) for _ in range(4)]
+    else:
+        bufs = [torch.empty(arr.nbytes, dtype=torch.uint8) for _ in range(4)]
+    ch = port.Channel(f"127.0.0.1:{second_fails_server.port}",
+                      timeout_ms=10000)
+    pipe = EchoPipeline(ch, payload, bufs, method="Echo.SecondFails",
+                        rows=1, cols=256)
+    try:
+        pipe.submit(4)
+        deadline = time.monotonic() + 10
+        while pipe._pipe.inflight and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert pipe._pipe.inflight == 0, "the window did not complete"
+        real_poll = pipe._pipe.poll
+
+        def failed_second(**kw):
+            got = real_poll(**kw)
+            good = [c for c in got if c.ok]
+            return good[:1] + [c for c in got if not c.ok] + good[1:]
+
+        monkeypatch.setattr(pipe._pipe, "poll", failed_second)
+        with pytest.raises(port.RpcError) as err:
+            pipe.poll(max_n=4, timeout_ms=0)
+        assert err.value.code == 7
+        assert pipe.inflight == 0 and pipe._pipe.outstanding == 0
+        free = [id(b) for b, _ in pipe._free]
+        assert len(free) == 3 and len(set(free)) == 3
+        assert set(free) < {id(b) for b in bufs}
+        pipe.submit(3)
+        echoed = []
+        while pipe.inflight:
+            got = pipe.poll(max_n=3, timeout_ms=10000)
+            assert got, "wedged"
+            echoed += got
+        want = int(jax_sum32(jnp.asarray(arr)))
+        assert [int(g) for _, g in echoed] == [want] * 3
+    finally:
+        pipe.close()
+        ch.close()
+        if landing == "rma":
+            for b in bufs:
+                b.free()
