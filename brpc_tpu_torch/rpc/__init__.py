@@ -1,9 +1,11 @@
-"""Port of brpc_tpu/rpc: the ctypes surface of the shared native runtime.
-The reference's capture, collective, kv and naming modules are not ported
-yet."""
+"""Port of brpc_tpu/rpc: the ctypes surface of the shared native runtime."""
 
+from brpc_tpu_torch.rpc import capture  # noqa: F401
+from brpc_tpu_torch.rpc import collective  # noqa: F401
 from brpc_tpu_torch.rpc import fault  # noqa: F401
 from brpc_tpu_torch.rpc import infer  # noqa: F401
+from brpc_tpu_torch.rpc import kv  # noqa: F401
+from brpc_tpu_torch.rpc import naming  # noqa: F401
 from brpc_tpu_torch.rpc import observe  # noqa: F401
 from brpc_tpu_torch.rpc import rma  # noqa: F401
 from brpc_tpu_torch.rpc import stream  # noqa: F401

@@ -43,7 +43,26 @@ From the root of a checkout it:
    windowed refill loop, each sent checksum held bit-exact against the
    plain version's and every landed response checksummed on the card by
    K1; then the request pins drain to 0, an exhausted deadline_scope raises
-   DeadlineExpiredError, and an inference server streams 4 prompts to EOS.
+   DeadlineExpiredError, and an inference server streams 4 prompts to EOS;
+10. drives the KV-block plane at tools/kv_disagg.py's sizes, with every
+   launch count reset just before and read just after: a seeded 96 MiB
+   tensor on the card is staged into a CUDA-registered RmaBuffer, published
+   as 12 x 8 MiB blocks and registered; a KvClient over shm fetches each
+   into a CUDA-registered landing RmaBuffer (stamped rma or copy) and back
+   onto the card, where it must equal its source slice and K1 on it must
+   equal the plain version on the source, bit-exact; the first block is
+   withdrawn, republished with new bytes and fetched fresh through the
+   stale cached record; a prefix round (4 tenants x 6 blocks of 256 KiB) is published
+   from CUDA tensors, matched and fetched, every block equal on the card;
+   traffic capture is on during the fetches and its dump holds Kv.Fetch
+   records;
+11. holds the LCG kernel (the pipeline step's producer) bit-exact against
+   its plain version on the card, and runs the pipeline-parallel step
+   (4 members, 8 microbatches, 256 KiB shards, 2 ms emulated link) with its
+   compute on the card, with every launch count reset just before and read
+   just after: sequential and overlapped results byte-exact, every member's
+   gathered buffers equal to the u32 sum over members of the plain pieces,
+   readiness triggers seen, no session or ready map left.
 
 It prints a `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  It exits non-zero, printing no result,
@@ -78,11 +97,16 @@ BATCH_DEPTH = 8            # 64 MiB calls in flight on the batch legs
 SMALL_BYTES = 1024         # the 1 KiB batch leg (bench.py:183-184) ...
 SMALL_DEPTH = 256          # ... at depth 256
 BATCH_SECONDS = 1.0        # the windowed refill loop of each batch leg
-# The H100 SXM's 32-bit integer add rate for the operations bound on K1's
-# n adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12 adds/s.  It
-# never binds (the bytes bound is ~40x larger), but it is the other half
-# of the bound the kernels line reports.
+# The H100 SXM's 32-bit integer rate: 132 SMs x 64 INT32 lanes (adds and
+# multiply-adds alike, one a lane a clock) x 1.98 GHz boost = 16.7e12
+# operations/s.  On K1's n adds it never binds (the bytes bound is ~40x
+# larger); on the LCG kernel's words x iters multiply-adds it does.
 INT32_ADDS_PER_S = 132 * 64 * 1.98e9
+PLAIN_CHUNK = 1024         # LCG steps per CUDA graph of the plain loop
+KV_BLOCKS = 12             # tools/kv_disagg.py DEFAULTS: 12 blocks ...
+KV_BLOCK_BYTES = 8 * MIB   # ... of 8 MiB
+PREFIX = {"tenants": 4, "sys_blocks": 4, "tail_blocks": 2,
+          "block_tokens": 128, "block_kb": 256}  # its PREFIX_DEFAULTS
 
 
 class SmokeError(RuntimeError):
@@ -150,6 +174,7 @@ def payloads(lanes: int, dev):
 def phase_build(log) -> None:
     from brpc_tpu_torch.ops import _kernels
     from brpc_tpu_torch.ops.echo_kernel import KERNEL
+    from brpc_tpu_torch.ops.lcg import KERNEL as LCG_KERNEL
     from brpc_tpu_torch.ops.ring_kernel import KERNEL as RING_KERNEL
     from brpc_tpu_torch.rpc import _lib
 
@@ -158,10 +183,10 @@ def phase_build(log) -> None:
         out = fn()
         return name, time.perf_counter() - t0, out
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         futs = [pool.submit(timed, f"kernel {name}",
                             lambda name=name: _kernels.build(name))
-                for name in (KERNEL, RING_KERNEL)]
+                for name in (KERNEL, RING_KERNEL, LCG_KERNEL)]
         futs.append(pool.submit(timed, "libtpurpc.so", _lib.ensure_built))
         results = [f.result() for f in futs]
     for name, secs, out in results:
@@ -908,6 +933,296 @@ def phase_batch_path(dev, card: str, log) -> dict:
     return out
 
 
+def _prompt_tokens(tenant: int) -> list:
+    """tools/kv_disagg.py `_prompt_tokens(spec, tenant, 0)`: a tenant's
+    shared system prefix and its hottest prompt's own tail."""
+    bt = PREFIX["block_tokens"]
+    sys_part = [1_000_000 * (tenant + 1) + j
+                for j in range(PREFIX["sys_blocks"] * bt)]
+    tail = [500_000_000 + 1_000_000 * tenant + 10_000 + j
+            for j in range(PREFIX["tail_blocks"] * bt)]
+    return sys_part + tail
+
+
+def _prefix_block(key, nbytes: int):
+    """tools/kv_disagg.py `_prefix_block_bytes`: content from the chain
+    key, so every process makes the same block."""
+    import numpy as np
+
+    salt = (key[1] & MASK) | 1
+    return ((np.arange(nbytes, dtype=np.uint64) * 2654435761 + salt)
+            >> 13).astype(np.uint8)
+
+
+def phase_kv_path(dev, card: str, log) -> dict:
+    """The KV-block plane at tools/kv_disagg.py's sizes: blocks published
+    from a device tensor, fetched one-sided over shm back onto the card
+    and checked there (K1 against the plain version on the source), a
+    republish fetched through a stale cached record, a prefix round from
+    device tensors, and Kv.Fetch records in a traffic capture."""
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch import payload_from_numpy
+    from brpc_tpu_torch.ops.echo_kernel import echo_fused, echo_reference
+    from brpc_tpu_torch.rpc import (Channel, RmaBuffer, Server, capture, kv,
+                                    observe)
+
+    bb, lanes = KV_BLOCK_BYTES, KV_BLOCK_BYTES // 4
+    rng = np.random.default_rng(SEED + 4)
+    src = payload_from_numpy(rng.integers(
+        0, 1 << 32, size=KV_BLOCKS * lanes, dtype=np.uint32), dev)
+    src8 = src.view(torch.uint8)
+    out = {"card": card, "blocks": KV_BLOCKS, "block_bytes": bb}
+    cap_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "kv_fetch.cap")
+    kv.reset()
+    srv = Server()
+    srv.enable_kv_store()
+    srv.enable_kv_registry()
+    addr = f"127.0.0.1:{srv.start(0)}"
+    pages = RmaBuffer(KV_BLOCKS * bb, device=dev)
+    lands = [RmaBuffer(bb, device=dev) for _ in range(KV_BLOCKS)]
+    reg = kv.KvRegistryClient(Channel(addr, timeout_ms=10000),
+                              owns_channel=True)
+    cli = kv.KvClient(addr, use_shm=True, timeout_ms=30000)
+    try:
+        check(pages.cuda_registered and all(b.cuda_registered for b in lands),
+              "a KV RmaBuffer is not registered with the CUDA driver")
+        # The store serves the registered pages zero-copy from publish on:
+        # the D2H copy must be complete before.
+        pages.tensor.copy_(src8, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        for i in range(KV_BLOCKS):
+            meta = kv.publish(1 + i, pages, offset=i * bb, length=bb,
+                              lease_ms=600000, node=addr)
+            reg.register(meta, lease_ms=600000)
+        check(kv.store_count() == KV_BLOCKS == kv.registry_count(),
+              f"store {kv.store_count()} / registry {kv.registry_count()} "
+              f"blocks, want {KV_BLOCKS}")
+
+        capture.enable_capture(True)
+        capture.reset_capture()
+        rma0 = int(observe.Vars.dump().get("rma_rx_msgs", 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backs = []
+        for i in range(KV_BLOCKS):
+            got = cli.fetch(1 + i, resp_buf=lands[i])
+            check(got == bb, f"block {1 + i}: fetched {got} of {bb} bytes")
+            backs.append(lands[i].tensor.to(dev, non_blocking=True))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rma = int(observe.Vars.dump().get("rma_rx_msgs", 0)) - rma0
+        out.update(fetch_gbps=KV_BLOCKS * bb / secs / 1e9, fetch_s=secs,
+                   rma_rx_msgs=rma, path="rma" if rma > 0 else "copy")
+        for i, back in enumerate(backs):
+            want = src[i * lanes:(i + 1) * lanes]
+            check(torch.equal(back, src8[i * bb:(i + 1) * bb]),
+                  f"block {1 + i} differs from its source on the card")
+            copy, csum = echo_fused(back.view(torch.int32).view(torch.uint32))
+            ref_copy, ref_sum = echo_reference(want)
+            check(torch.equal(copy.view(torch.int32), ref_copy.view(
+                torch.int32)) and u32(csum) == u32(ref_sum),
+                f"block {1 + i}: K1 on the landed block != plain on source")
+        del backs
+
+        # Republish block 1 with new bytes; the client's cached record is
+        # now stale and must be invalidated, not served.
+        fresh = payload_from_numpy(rng.integers(
+            0, 1 << 32, size=lanes, dtype=np.uint32), dev)
+        kv.withdraw(1)
+        pages.tensor[:bb].copy_(fresh.view(torch.uint8), non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        meta = kv.publish(1, pages, length=bb, lease_ms=600000, node=addr)
+        reg.register(meta, lease_ms=600000)
+        inval0 = cli.invalidations
+        check(cli.fetch(1, resp_buf=lands[0]) == bb, "republished fetch")
+        back = lands[0].tensor.to(dev)
+        check(torch.equal(back, fresh.view(torch.uint8)),
+              "the republished block came back stale")
+        check(cli.invalidations >= inval0 + 1 and meta.generation >= 2,
+              f"no invalidation ({cli.invalidations}) or generation "
+              f"{meta.generation} on republish")
+        out.update(invalidations=cli.invalidations,
+                   republish_generation=meta.generation)
+
+        n = capture.dump(cap_path)
+        capture.enable_capture(False)
+        _header, recs = capture.load_capture(cap_path)
+        fetches = sum(r.method == "Kv.Fetch" for r in recs)
+        check(fetches > 0, f"capture of {n} records holds no Kv.Fetch")
+        out["capture_kv_fetch_records"] = fetches
+
+        # One prefix round: each tenant's hottest prompt, published from
+        # device tensors, matched and fetched back onto the card.
+        bt, pb = PREFIX["block_tokens"], PREFIX["block_kb"] << 10
+        blocks = 0
+        for tenant in range(PREFIX["tenants"]):
+            tokens = _prompt_tokens(tenant)
+            keys = kv.prefix_chain(tokens, bt)
+            check(len(keys) == PREFIX["sys_blocks"] + PREFIX["tail_blocks"],
+                  f"tenant {tenant}: {len(keys)} chain keys")
+            datas = []
+            for d, key in enumerate(keys):
+                host = _prefix_block(key, pb)
+                data = torch.from_numpy(host).to(dev)
+                span = tokens[d * bt:(d + 1) * bt]
+                meta, _fresh = kv.prefix_publish(key, d, data, span,
+                                                 lease_ms=600000, node=addr)
+                check(meta.hash == kv.content_hash(host.tobytes(), span),
+                      f"tenant {tenant} block {d}: content hash of the "
+                      "device tensor != hash of its bytes")
+                reg.put_prefix(meta, lease_ms=600000)
+                datas.append(data)
+            groups = cli.match_prefix(tokens, bt)
+            got = cli.fetch_prefix(tokens, bt)
+            check(len(groups) == len(keys) == len(got),
+                  f"tenant {tenant}: matched {len(groups)}, fetched "
+                  f"{len(got)} of {len(keys)} blocks")
+            for d, (data, raw) in enumerate(zip(datas, got)):
+                back = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+                check(torch.equal(back.to(dev), data),
+                      f"tenant {tenant} prefix block {d} differs on card")
+            blocks += len(got)
+        out["prefix_blocks"] = blocks
+    finally:
+        capture.enable_capture(False)
+        cli.close()
+        reg.close()
+        for b in lands:
+            b.free()
+        pages.free()
+        srv.close()
+        kv.reset()
+    log(f"kv [{card}]: {KV_BLOCKS} x 8 MiB published from the card, fetched "
+        f"over shm ({out['path']}, {out['rma_rx_msgs']} rma_rx_msgs) back "
+        f"onto the card, equal and K1 == plain; fetch goodput "
+        f"{out['fetch_gbps']} GB/s; republish fetched fresh (generation "
+        f"{out['republish_generation']}, invalidations "
+        f"{out['invalidations']}); {blocks} prefix blocks of 256 KiB equal "
+        f"on the card; capture holds {fetches} Kv.Fetch records")
+    return out
+
+
+def _lcg_plain_replayed(words: int, base: int, iters: int, dev):
+    """`lcg_plain`'s loop on the card, as int64 values in [0, 2^32), its
+    launches replayed from a CUDA graph of PLAIN_CHUNK steps: the same
+    torch operations without a host launch each (launched one by one, the
+    ~5e5 steps of a calibrated piece cost 20 s of host time)."""
+    import torch
+
+    from brpc_tpu_torch.ops.lcg import ADD, MUL, lcg_plain
+
+    v = lcg_plain(words, base, 0, dev).view(torch.int32).to(
+        torch.int64) & MASK
+
+    def steps(t, k):
+        for _ in range(k):
+            t.mul_(MUL).add_(ADD).bitwise_and_(MASK)
+
+    warm = torch.cuda.Stream(dev)  # warm-up outside the capture
+    warm.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(warm):
+        steps(v.clone(), 3)
+    torch.cuda.current_stream(dev).wait_stream(warm)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        steps(v, PLAIN_CHUNK)
+    for _ in range(iters // PLAIN_CHUNK):
+        graph.replay()
+    steps(v, iters % PLAIN_CHUNK)
+    return v
+
+
+def phase_pipeline_step(dev, card: str, log) -> dict:
+    """The pipeline-parallel step with its compute on the card, checked
+    against the plain LCG; returns the row and the LCG kernel's numbers.
+    The caller resets and reads the launch counts around it."""
+    import torch
+
+    from brpc_tpu_torch.ops import _kernels
+    from brpc_tpu_torch.ops.lcg import (WRAPPER, lcg, lcg_jump, lcg_plain,
+                                        piece_base)
+    from brpc_tpu_torch.ops.roofline import hbm_peak_gbps
+    from brpc_tpu_torch.tools.pipeline_step import run_pipeline
+
+    gathered = []
+
+    def keep(bufs):  # copies of the overlapped run's results, on the card
+        gathered.extend([[t.to(dev, copy=True) for t in per] for per in bufs])
+
+    row = run_pipeline(device=dev, on_gathered=keep)
+    launches = _kernels.launches[WRAPPER]
+    log(f"pipeline step [{card}]: {json.dumps(row)}")
+    n, m_count = row["members"], row["microbatches"]
+    words, iters = row["shard_bytes"] // 4, row["compute_iters"]
+    check(row["byte_exact"], "pipeline: overlapped != sequential bytes")
+    check(row["ready_triggers"] > 0, "pipeline: no readiness trigger")
+    check(row["sessions_live"] == 0 and row["ready_maps_live"] == 0,
+          f"pipeline: {row['sessions_live']} sessions, "
+          f"{row['ready_maps_live']} ready maps left")
+
+    def bits(t):
+        return t.view(torch.int32).to(torch.int64) & MASK
+
+    # The kernel against the plain loop at one piece, the calibrated iters
+    # (the loop replayed from a graph, itself held against the eager loop).
+    base = piece_base(0, 0, 0)
+    short = 3 * PLAIN_CHUNK + 5
+    check(torch.equal(_lcg_plain_replayed(words, base, short, dev),
+                      bits(lcg_plain(words, base, short, dev))),
+          "the replayed plain loop != the eager plain loop")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = _lcg_plain_replayed(words, base, iters, dev)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    got = bits(lcg(words, base, iters, dev))
+    err = int((got - plain).abs().max())
+    check(err == 0, f"LCG kernel != plain at iters={iters} (err {err})")
+    check(torch.equal(plain, bits(lcg_jump(
+        words, torch.tensor([base], device=dev), iters)[0])),
+        "LCG closed form != plain loop on the card")
+
+    # Every member's gathered buffer: the u32 sum over members of the
+    # plain pieces, computed on the card for every (rank, microbatch,
+    # piece) by the plain loop's closed form.
+    bases = torch.tensor([piece_base(r, m, p) for r in range(n)
+                          for m in range(m_count) for p in range(n)],
+                         device=dev)
+    pieces = bits(lcg_jump(words, bases, iters)).view(n, m_count, n * words)
+    want = pieces.sum(dim=0) & MASK
+    for r in range(n):
+        for m in range(m_count):
+            check(torch.equal(bits(gathered[r][m]), want[m]),
+                  f"pipeline: rank {r} microbatch {m} gathered != the sum "
+                  "of the plain pieces")
+
+    ms = cuda_ms(lambda: lcg(words, base, iters, dev), iters=10)
+    # Bound: words x iters multiply-adds at the INT32 rate, or the output
+    # written once at the published HBM rate, whichever is longer.
+    ops_ms = words * iters / INT32_ADDS_PER_S * 1e3
+    peak = hbm_peak_gbps(torch.cuda.get_device_name(0))
+    bytes_ms = 0.0 if peak is None else 4 * words / (peak * 1e9) * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    out = {"row": row, "launches": launches, "max_abs_err": err,
+           "words": words, "iters": iters, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "int32_frac": bound_ms / ms}
+    log(f"LCG kernel [{card}]: {words} words x {iters} iters bit-exact vs "
+        f"plain; {ms} ms, bound {bound_ms} ms ({out['bound_by']}), fraction "
+        f"{out['int32_frac']}; plain {plain_ms} ms; gathered buffers of "
+        f"{n} members x {m_count} microbatches equal the plain sums; "
+        f"speedup {row['speedup']}, overlap_efficiency "
+        f"{row['overlap_efficiency']}, compute_ms {row['compute_ms']}, "
+        f"comm_ms {row['comm_ms']}; {launches} launches")
+    return out
+
+
 def run(out_path: str | None) -> int:
     import torch
 
@@ -918,6 +1233,7 @@ def run(out_path: str | None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from brpc_tpu_torch.ops import _kernels
     from brpc_tpu_torch.ops.echo_kernel import WRAPPER
+    from brpc_tpu_torch.ops.lcg import WRAPPER as LCG_WRAPPER
     from brpc_tpu_torch.ops.ring_kernel import WRAPPER as RING_WRAPPER
 
     def log(msg: str) -> None:
@@ -930,6 +1246,7 @@ def run(out_path: str | None) -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     phase_build(log)
+    phase_s = {"build": time.perf_counter() - t0}
     max_err = phase_kernel_vs_plain(dev, log)
     phase_step(dev, log)
 
@@ -958,20 +1275,40 @@ def run(out_path: str | None) -> int:
     check(batch_launches.get(WRAPPER, 0) > 0,
           f"batch path launched {WRAPPER} no time")
     log(f"batch path launches: {batch_launches}")
+
+    t_kv = time.perf_counter()
+    _kernels.reset_launches()
+    kv_path = phase_kv_path(dev, card, log)
+    kv_launches = dict(_kernels.launches)
+    check(kv_launches.get(WRAPPER, 0) > 0,
+          f"KV path launched {WRAPPER} no time")
+    log(f"KV path launches: {kv_launches}")
+
+    t_pipe = time.perf_counter()
+    _kernels.reset_launches()
+    pipeline = phase_pipeline_step(dev, card, log)
+    check(pipeline["launches"] > 0,
+          f"pipeline step launched {LCG_WRAPPER} no time")
+    log(f"pipeline step launches: {{{LCG_WRAPPER!r}: "
+        f"{pipeline['launches']}}}")
+    phase_s.update(kv=t_pipe - t_kv, pipeline=time.perf_counter() - t_pipe)
+    log(f"phase seconds: {phase_s}")
     timing_line = dict(timing, rpc_gbps=main["rpc_gbps"],
                        transport=main["transport"],
                        d2h_land_gbps=main["d2h_land_gbps"],
                        ici_zero_copy=main["ici_zero_copy"],
                        roundtrip_verified=main["roundtrip_verified"],
                        ring=dict(ring_timing, **multi),
-                       batch=batch,
+                       batch=batch, kv=kv_path,
+                       pipeline=pipeline, phase_s=phase_s,
                        wall_s=time.perf_counter() - t0)
     log("timing: " + json.dumps(timing_line))
     kernels = {"kernels": [{
         "name": WRAPPER, "route": "cuda",
         "source": "brpc_tpu_torch/csrc/echo_kernel.cu",
         "replaces": "brpc_tpu/ops/echo_kernel.py:26",
-        "launches": launches[WRAPPER] + batch_launches[WRAPPER],
+        "launches": (launches[WRAPPER] + batch_launches[WRAPPER]
+                     + kv_launches[WRAPPER]),
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -983,7 +1320,15 @@ def run(out_path: str | None) -> int:
         "ms": ring_timing["ms"], "plain_ms": ring_timing["plain_ms"],
         "bound_ms": ring_timing["bound_ms"],
         "bound_by": ring_timing["bound_by"],
-        "library_ms": ring_timing["library_ms"]}]}
+        "library_ms": ring_timing["library_ms"]}, {
+        "name": LCG_WRAPPER, "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/lcg_kernel.cu",
+        "replaces": "tools/pipeline_step.py:63",
+        "launches": pipeline["launches"],
+        "max_abs_err": pipeline["max_abs_err"],
+        "ms": pipeline["ms"], "plain_ms": pipeline["plain_ms"],
+        "bound_ms": pipeline["bound_ms"], "bound_by": pipeline["bound_by"],
+        "library_ms": None}]}
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)),
                     exist_ok=True)

@@ -418,24 +418,21 @@ def test_announce_without_registry_raises():
         srv.close()
 
 
-NOT_PORTED_YET = {"capture", "collective", "kv", "naming"}
-
-
 def test_export_surface_matches_reference():
     """brpc_tpu_torch.rpc exports every name brpc_tpu/rpc/__init__.py
-    imports (but the modules not ported yet), each defined by the port,
-    and the observe, fault, tuner, stream, infer and rma modules."""
+    imports, each defined by the port (capture, collective, kv and naming
+    included), and the observe, fault, tuner, stream, infer and rma
+    modules."""
     tree = ast.parse(pathlib.Path(ref.__file__).read_text())
     names = {a.asname or a.name for node in ast.walk(tree)
              if isinstance(node, ast.ImportFrom) for a in node.names}
     assert "Batch" in names and "capture" in names
-    for name in sorted(names - NOT_PORTED_YET) + [
+    assert {"capture", "collective", "kv", "naming"} <= names
+    for name in sorted(names) + [
             "observe", "fault", "tuner", "stream", "infer", "rma"]:
         obj = getattr(port, name)
         mod = getattr(obj, "__module__", None) or obj.__name__
         assert mod.startswith("brpc_tpu_torch."), (name, mod)
-    for name in NOT_PORTED_YET:
-        assert not hasattr(port, name), name
 
 
 def test_ensure_built_is_idempotent():

@@ -56,3 +56,17 @@ def test_forbidden_pattern_tells_port_from_reference():
     assert _FORBIDDEN.search("    import brpc_tpu")
     assert not _FORBIDDEN.search("from brpc_tpu_torch.rpc import zerocopy")
     assert not _FORBIDDEN.search("import brpc_tpu_torch")
+
+
+@pytest.mark.parametrize("module", [
+    "brpc_tpu_torch.rpc.capture", "brpc_tpu_torch.rpc.collective",
+    "brpc_tpu_torch.rpc.kv", "brpc_tpu_torch.rpc.naming",
+    "brpc_tpu_torch.ops.lcg", "brpc_tpu_torch.tools",
+    "brpc_tpu_torch.tools.pipeline_step"])
+def test_slice_c2_modules_are_covered(module):
+    """The modules of slice C2 are among those imported without jax above,
+    and their sources among those scanned."""
+    assert module in _modules()
+    path = REPO.joinpath(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in SOURCES
