@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from brpc_tpu_torch.parallel.fabric import Fabric  # noqa: F401
+
 __version__ = "0.1.0"
 
 

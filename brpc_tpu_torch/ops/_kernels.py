@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -57,8 +58,8 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> pathlib.Path:
-    """Compiles csrc/<name>.cu (when not built yet) and returns the
-    library's path.  The compiler's resource report (-Xptxas -v) is kept
+    """Compiles csrc/<name>.cu (when not built yet, judged under a file
+    lock shared with other processes) and returns the library's path.  The compiler's resource report (-Xptxas -v) is kept
     beside it as <library>.log.  Raises RuntimeError without nvcc, without
     a GPU, or when the compile fails."""
     nvcc = _nvcc()
@@ -67,20 +68,29 @@ def build(name: str) -> pathlib.Path:
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     lib = _OUT / f"lib{name}-{digest}.so"
-    if lib.exists():
-        return lib
     _OUT.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {src.name} (rc {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    # One build per source across processes: the first to hold the lock
+    # compiles, the others find the library when they get it.
+    with open(_OUT / f"lib{name}.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.exists():
+                return lib
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+                   str(src)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {src.name} (rc {proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            lib.with_name(lib.name + ".log").write_text(
+                proc.stdout + proc.stderr)
+            os.replace(tmp, lib)
+            return lib
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -305,8 +305,35 @@ class Fabric:
             bits(view).copy_(bits(part))
         return out
 
+    def check_replicas(self, parts: list, spec: P) -> None:
+        """Raises ValueError unless the peers' outputs that `spec` declares
+        replicas of one another are bit-identical: every peer against the
+        peer with its coordinates on the axes `spec` mentions and 0 on the
+        others (for P(), every peer against peer 0)."""
+        mentioned = {a for d in range(len(spec)) for a in spec.axes(d)}
+        names = self.axis_names
+        for rank, part in enumerate(parts):
+            coords = list(self.coords(rank))
+            for i, a in enumerate(names):
+                if a not in mentioned:
+                    coords[i] = 0
+            ref = self.rank_of(coords)
+            if ref == rank:
+                continue
+            want = parts[ref]
+            same = (part is None and want is None) or (
+                part is not None and want is not None
+                and part.dtype == want.dtype
+                and tuple(part.shape) == tuple(want.shape)
+                and torch.equal(bits(part), bits(want)))
+            if not same:
+                raise ValueError(
+                    f"check_vma: peer {rank}'s output under out spec "
+                    f"{spec!r} differs from peer {ref}'s, which it "
+                    "replicates")
+
     # -- SPMD -------------------------------------------------------------
-    def spmd(self, fn, in_specs, out_specs):
+    def spmd(self, fn, in_specs, out_specs, check_vma: bool = False):
         """shard_map over this fabric: returns f(*global_args) that runs
         `fn(*local_args)` once per peer, each in its own thread, and
         assembles the peers' outputs by `out_specs`.
@@ -314,7 +341,10 @@ class Fabric:
         `in_specs` is a P for every argument or a tuple with one spec per
         argument; `out_specs` a P or a structure matching the outputs.  A
         peer that raises fails the whole call with its error; a rendezvous
-        that waits longer than `timeout_s` fails it with TimeoutError."""
+        that waits longer than `timeout_s` fails it with TimeoutError.
+        With `check_vma` (the reference's shard_map replication check),
+        outputs declared replicated along an axis must be bit-identical
+        across its peers, or the call raises ValueError."""
 
         def run(*args):
             if getattr(_local, "ctx", None) is not None:
@@ -330,6 +360,8 @@ class Fabric:
                     t, sp, r)) for s, a in zip(specs, args))
                 for rank in range(n)]
             outs = self._run_peers(fn, local_args)
+            if check_vma:
+                _walk_tree(out_specs, outs, self.check_replicas)
             return _assemble_tree(self, out_specs, outs)
 
         return run
@@ -384,6 +416,23 @@ class Fabric:
         if first is not None:
             raise first
         return outs
+
+
+def _walk_tree(spec, outs: list, fn) -> None:
+    """Calls fn(parts, leaf_spec) for every output leaf, `parts` holding
+    that leaf of each peer's output."""
+    if isinstance(spec, P):
+        if isinstance(outs[0], (tuple, list)):
+            for i in range(len(outs[0])):
+                _walk_tree(spec, [o[i] for o in outs], fn)
+        else:
+            fn(outs, spec)
+        return
+    if len(spec) != len(outs[0]):
+        raise ValueError(f"out_specs {spec!r} do not match "
+                         f"{len(outs[0])} outputs")
+    for i, s in enumerate(spec):
+        _walk_tree(s, [o[i] for o in outs], fn)
 
 
 def _assemble_tree(fabric: Fabric, spec, outs: list):

@@ -9,7 +9,9 @@ including the void ones the reference leaves at ctypes' int default.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import pathlib
 import shutil
@@ -73,7 +75,8 @@ def _cxx() -> str:
 def _build_with_compiler() -> None:
     """cmake-less build: compile cpp/ straight with the system C++ compiler
     (the flags of cpp/CMakeLists.txt) into build/obj/ and link
-    libtpurpc.so, one compile per core."""
+    libtpurpc.so, one compile per core, through a temporary name and one
+    rename, so no process opens a half-linked library."""
     cxx = _cxx()
     cpp = _REPO / "cpp"
     obj_dir = _BUILD / "obj"
@@ -107,16 +110,39 @@ def _build_with_compiler() -> None:
 
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
         objs = list(pool.map(compile_one, sources))
-    _run([cxx, "-shared", "-o", str(_LIB_PATH), *objs,
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
+    _run([cxx, "-shared", "-o", str(tmp), *objs,
           "-lpthread", "-lrt", "-lz", "-ldl"])
+    os.replace(tmp, _LIB_PATH)
+
+
+@contextlib.contextmanager
+def build_lock():
+    """Holds an exclusive `flock` on build/.libtpurpc.lock: processes that
+    build or load the native library take turns, so none loads it while
+    another one's linker is writing it."""
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD / ".libtpurpc.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def ensure_built(all_targets: bool = False) -> None:
     """(Re)builds build/libtpurpc.so when missing or older than any cpp/
-    source: cmake's `tpurpc` target (every target with `all_targets`) where
-    cmake exists, else a direct compiler build of the library alone
+    source: cmake's `tpurpc` target (every target with `all_targets`)
+    where cmake exists, else a direct compiler build of the library alone
     (all_targets callers must check for cmake themselves).  The same
-    library the reference loads."""
+    library, and the same build directory, the reference uses.  Staleness
+    is judged under build_lock(), so of several processes that find it
+    stale at once one builds and the others find it built."""
+    with build_lock():
+        _ensure_built_locked(all_targets)
+
+
+def _ensure_built_locked(all_targets: bool = False) -> None:
     stale = (not _LIB_PATH.exists()
              or _LIB_PATH.stat().st_mtime < _newest_source_mtime())
     if shutil.which("cmake") is None:
@@ -135,17 +161,20 @@ def ensure_built(all_targets: bool = False) -> None:
 def ensure_bench_echo() -> pathlib.Path:
     """Builds build/bench_echo (the C++ loopback echo benchmark) when
     missing or stale, linked against libtpurpc.so."""
-    ensure_built()
-    exe = _BUILD / "bench_echo"
-    src = _REPO / "cpp" / "tools" / "bench_echo.cc"
-    if exe.exists() and exe.stat().st_mtime >= max(
-            src.stat().st_mtime, _LIB_PATH.stat().st_mtime):
+    with build_lock():
+        _ensure_built_locked()
+        exe = _BUILD / "bench_echo"
+        src = _REPO / "cpp" / "tools" / "bench_echo.cc"
+        if exe.exists() and exe.stat().st_mtime >= max(
+                src.stat().st_mtime, _LIB_PATH.stat().st_mtime):
+            return exe
+        tmp = exe.with_name(f"{exe.name}.{os.getpid()}.tmp")
+        _run([_cxx(), "-std=c++20", "-O2", "-g", "-fno-omit-frame-pointer",
+              "-I", str(_REPO / "cpp"), str(src),
+              "-L", str(_BUILD), f"-Wl,-rpath,{_BUILD}",
+              "-ltpurpc", "-lpthread", "-o", str(tmp)])
+        os.replace(tmp, exe)
         return exe
-    _run([_cxx(), "-std=c++20", "-O2", "-g", "-fno-omit-frame-pointer",
-          "-I", str(_REPO / "cpp"), str(src),
-          "-L", str(_BUILD), f"-Wl,-rpath,{_BUILD}",
-          "-ltpurpc", "-lpthread", "-o", str(exe)])
-    return exe
 
 
 _P = ctypes.c_void_p
@@ -386,8 +415,10 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            ensure_built()
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            # Built (if stale) and opened under one hold of the lock.
+            with build_lock():
+                _ensure_built_locked()
+                lib = ctypes.CDLL(str(_LIB_PATH))
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

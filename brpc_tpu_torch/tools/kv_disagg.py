@@ -1,0 +1,778 @@
+"""Prefill/decode disaggregation over the KV-block fabric — port of
+tools/kv_disagg.py, with the KV pages and the landed blocks on the card.
+
+The workload the transport stack exists for (fabric-lib, arXiv
+2510.27656; overlap discipline from T3, arXiv 2401.16677), composed
+from the repo's own planes:
+
+  PREFILL process — a Server hosting the node-local KV block store
+  (Kv.Fetch serves published blocks zero-copy out of RmaBuffer pages),
+  the block registry (KvReg.*), and a native token-step echo.  Fills N
+  blocks of M MB on the card with a per-block pattern, copies them into
+  one CUDA-registered RmaBuffer, synchronises, and only then publishes
+  and registers them (publish refuses a CUDA tensor).  Per-tenant QoS is
+  on: the token tenant outweighs the kv tenant, so MB-scale block pulls
+  cannot head-of-line block the decode stream.
+
+  DECODE process — a KvClient that resolves blocks through the registry
+  (cached lookups, generation-checked) and pulls them continuously over
+  an shm connection with a D-deep pipeline, each block landing
+  ONE-SIDED in a CUDA-registered RmaBuffer (the direct path).  Each
+  landed block goes back onto the card with one H2D copy on a side
+  stream, where K1 (`echo_fused`) checksums it against the pattern's
+  checksum; a landing buffer is resubmitted only after the event
+  recorded behind its copy.  Runs its own Server purely to export
+  /rpcz + /timeline for stitching.
+
+  DRIVER (this process) — orchestrates both, samples the token-RPC p99
+  against the prefill server UNLOADED and then LOADED (while the decode
+  process saturates the same server with block pulls — the load
+  generator and the latency sampler are separate processes, per the
+  qos_mixed bench discipline), stitches a cross-node Perfetto trace
+  (spans + flight-recorder timelines from BOTH roles, kv_block events on
+  their own track), and prints one JSON row:
+
+    kv_goodput_gbps AND token p99 ratio, held simultaneously.
+
+The row keeps every key of the reference's and adds the device legs:
+`device_goodput_gbps` (bytes landed on the card over the decode window,
+which ends in `torch.cuda.synchronize()`), `device_verified` (block 0
+equal to its pattern on the card, K1 equal to the plain version on it,
+and K1's checksum of every landed block equal to its pattern's) and
+`k1_launches` (K1 launches in the decode process).
+
+Usage (on the GPU; `--device cpu` runs every role on the CPU, where K1
+takes its plain version):
+    python -m brpc_tpu_torch.tools.kv_disagg --json         # the row
+    python -m brpc_tpu_torch.tools.kv_disagg --json --seconds 8 \
+        --out build/kv_disagg_trace.json        # + Perfetto artifact
+    python -m brpc_tpu_torch.tools.kv_disagg --chaos 'corrupt=0.02' ...
+
+Importable pieces (tests): `run_driver`, `DEFAULTS`, `block_pattern`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+from brpc_tpu_torch import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+MODULE = "brpc_tpu_torch.tools.kv_disagg"
+
+DEFAULTS = {
+    "blocks": 12,
+    "block_mb": 8,
+    "depth": 4,
+    "seconds": 8.0,
+    "qos_lanes": 4,
+    "lane_weights": "8,4,2,1",
+    "qos_spec": "tok:weight=8;kv:weight=1",
+}
+
+# Prefix-cache phase defaults: a Zipfian multi-tenant prompt
+# mix replayed against the prefill node's content-addressed store.
+PREFIX_DEFAULTS = {
+    "seed": 17,
+    "samples": 64,
+    "tenants": 4,
+    "prompts_per_tenant": 8,
+    "sys_blocks": 4,     # per-tenant shared system-prompt prefix
+    "tail_blocks": 2,    # per-prompt unique suffix
+    "block_tokens": 128,
+    "block_kb": 256,
+    "zipf_s": 1.1,
+}
+
+
+def _shape_tenant_weights(shape_path: str, tenants: int) -> list:
+    """Tenant mix for the prompt population.  With --shape, the weights
+    are the golden capture's recorded per-tenant record shares (the
+    REAL tenant mix, not a synthetic one); otherwise `tenants` equal
+    synthetic tenants."""
+    if shape_path:
+        from brpc_tpu_torch.rpc import capture
+
+        _header, records = capture.load_capture(shape_path)
+        counts: dict = {}
+        for r in records:
+            t = r.tenant or "anon"
+            counts[t] = counts.get(t, 0) + 1
+        if counts:
+            return sorted(counts.items(), key=lambda kv: -kv[1])
+    return [(f"tenant{i}", 1) for i in range(tenants)]
+
+
+def _prompt_tokens(spec: dict, ti: int, rank: int) -> list:
+    """Deterministic token ids for (tenant, prompt-rank): a per-tenant
+    shared system prefix + a per-prompt unique tail.  Content bytes
+    derive from the chain keys, so every process regenerates the same
+    blocks — the content-addressed dedup scenario."""
+    bt = spec["block_tokens"]
+    sys_part = [1_000_000 * (ti + 1) + j
+                for j in range(spec["sys_blocks"] * bt)]
+    tail = [500_000_000 + 1_000_000 * ti + 10_000 * (rank + 1) + j
+            for j in range(spec["tail_blocks"] * bt)]
+    return sys_part + tail
+
+
+def _prefix_block_bytes(key: tuple, nbytes: int) -> bytes:
+    import numpy as np
+
+    salt = (key[1] & 0xFFFFFFFF) | 1
+    return (((np.arange(nbytes, dtype=np.uint64) * 2654435761 + salt)
+             >> 13).astype(np.uint8)).tobytes()
+
+
+def _prefix_phase(addr: str, spec: dict) -> dict:
+    """Runs inside the PREFILL process (the store owner): samples the
+    Zipfian prompt mix, asks the registry for each prompt's longest
+    cached prefix, 'recomputes' (publishes + registers) only the missed
+    blocks, and accounts prefill bytes-recomputed with the cache OFF
+    (every block, every prompt) vs ON (missed blocks only)."""
+    import random
+
+    from brpc_tpu_torch.rpc import Channel, kv
+
+    rng = random.Random(spec["seed"])
+    bt = spec["block_tokens"]
+    pb = spec["block_kb"] << 10
+    tenants = spec["tenant_weights"]
+    t_weights = [w for _name, w in tenants]
+    ranks = list(range(spec["prompts_per_tenant"]))
+    zipf_w = [1.0 / (r + 1) ** spec["zipf_s"] for r in ranks]
+
+    reg = kv.KvRegistryClient(Channel(addr, timeout_ms=10000),
+                              owns_channel=True)
+    bytes_off = 0       # cache OFF: the full prefix recomputes each time
+    bytes_on = 0        # cache ON: only the missed blocks recompute
+    blocks_hit = 0
+    blocks_total = 0
+    t0 = time.perf_counter()
+    for _ in range(spec["samples"]):
+        ti = rng.choices(range(len(tenants)), weights=t_weights)[0]
+        rank = rng.choices(ranks, weights=zipf_w)[0]
+        tokens = _prompt_tokens(spec, ti, rank)
+        keys = kv.prefix_chain(tokens, bt)
+        bytes_off += len(keys) * pb
+        blocks_total += len(keys)
+        hit_depth = len({(r.key_hi, r.key_lo) for r in reg.match(keys)})
+        blocks_hit += hit_depth
+        for d in range(hit_depth, len(keys)):
+            data = _prefix_block_bytes(keys[d], pb)
+            span = tokens[d * bt:(d + 1) * bt]
+            meta, fresh = kv.prefix_publish(keys[d], d, data, span,
+                                            lease_ms=600000, node=addr)
+            reg.put_prefix(meta, lease_ms=600000)
+            if fresh:
+                bytes_on += pb  # genuinely recomputed + admitted
+    dt = time.perf_counter() - t0
+    counters = kv.prefix_counters()
+    reg.close()
+    # The hottest prompt (heaviest tenant, rank 0): the driver replays
+    # its match -> hint -> hinted-call path from OUTSIDE this process.
+    hot = _prompt_tokens(spec, 0, 0)
+    return {
+        "prefix_bytes_recomputed_off": bytes_off,
+        "prefix_bytes_recomputed_on": bytes_on,
+        "prefix_recompute_drop": round(bytes_off / max(bytes_on, 1), 2),
+        "prefix_hit_ratio": round(blocks_hit / max(blocks_total, 1), 4),
+        "prefix_samples": spec["samples"],
+        "prefix_blocks_total": blocks_total,
+        "prefix_block_bytes": pb,
+        "prefix_block_tokens": bt,
+        "prefix_tenants": [list(t) for t in tenants],
+        "prefix_zipf_s": spec["zipf_s"],
+        "prefix_phase_s": round(dt, 3),
+        "prefix_store_count": kv.prefix_store_count(),
+        "prefix_store_hot_bytes": kv.prefix_hot_bytes(),
+        "prefix_store_cold_bytes": kv.prefix_cold_bytes(),
+        "prefix_registry_records": kv.prefix_registry_count(),
+        "prefix_registry_replicas": kv.prefix_registry_replicas(),
+        "prefix_promotions": counters["promote"],
+        "prefix_demotions": counters["demote"],
+        "hot_tokens": hot,
+    }
+
+
+# ---------------------------------------------------------------- roles ----
+
+def block_pattern(i: int, nbytes: int, device) -> torch.Tensor:
+    """Block i's bytes as a uint8 tensor on `device`: the reference's
+    `((k * 2654435761 + i * 97) >> 13).astype(np.uint8)` over k < nbytes,
+    which numpy computes in uint64.  Here it is int64: below 2^31 bytes
+    the product stays under 2^63, so every value is the same, and the
+    mask keeps the low byte as astype does.  A block landed at the wrong
+    offset, or torn, can never equal its own pattern."""
+    if nbytes >= 1 << 31:
+        raise ValueError("block_pattern is exact below 2^31 bytes")
+    k = torch.arange(nbytes, dtype=torch.int64, device=device)
+    return (((k * 2654435761 + i * 97) >> 13) & 0xFF).to(torch.uint8)
+
+
+def _lanes(t: torch.Tensor) -> torch.Tensor:
+    """A uint8 block as the flat uint32 payload K1 takes."""
+    return t.view(torch.int32).view(torch.uint32)
+
+
+def run_prefill(args) -> None:
+    from brpc_tpu_torch.rpc import (Channel, RmaBuffer, Server, kv, observe,
+                                    set_flag)
+
+    dev = resolve_device(args.device)
+
+    if args.timeline:
+        set_flag("trpc_timeline", "true")
+    observe.enable_rpcz()
+    set_flag("trpc_qos_lanes", str(args.qos_lanes))
+    set_flag("trpc_qos_lane_weights", args.lane_weights)
+    srv = Server()
+    srv.enable_kv_store()
+    srv.enable_kv_registry()
+    srv.register_native_echo("Token.Step")
+    if args.qos_spec:
+        srv.set_qos(args.qos_spec)
+    srv.start(args.port)
+    addr = f"127.0.0.1:{srv.port}"
+    if args.chaos:
+        from brpc_tpu_torch.rpc import fault
+
+        fault.set_schedule(args.chaos)
+
+    block_bytes = args.block_mb << 20
+    # The pages are made on the card and copied into one CUDA-registered
+    # RmaBuffer (one D2H DMA a block); the store serves the registered
+    # bytes zero-copy from publish on, so the copies complete first.
+    pages = RmaBuffer(args.blocks * block_bytes, device=dev)
+    for i in range(args.blocks):
+        pages.tensor[i * block_bytes:(i + 1) * block_bytes].copy_(
+            block_pattern(i, block_bytes, dev), non_blocking=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    reg = kv.KvRegistryClient(Channel(addr, timeout_ms=10000),
+                              owns_channel=True)
+    for i in range(args.blocks):
+        meta = kv.publish(1 + i, pages, offset=i * block_bytes,
+                          length=block_bytes, lease_ms=args.lease_ms,
+                          node=addr)
+        reg.register(meta, lease_ms=args.lease_ms)
+    print(f"PORT {srv.port}", flush=True)
+    # Command loop: the driver asks for the prefix-cache phase mid-run
+    # (the store lives HERE); closing stdin stops us, as before.
+    for line in sys.stdin:
+        line = line.strip()
+        if line.startswith("PREFIX "):
+            prow = _prefix_phase(addr, json.loads(line[len("PREFIX "):]))
+            print("PREFIXROW " + json.dumps(prow), flush=True)
+        else:
+            break
+    reg.close()
+    pages.free()
+    srv.stop()
+
+
+class _DeviceLanding:
+    """The decode role's device leg: a landed block goes onto the card
+    with one H2D copy on a side stream, where K1 checksums it and the
+    checksum is compared with its pattern's, all without a host wait.
+    `ready(li)` waits for the event behind landing buffer li's last copy
+    (the landing rule: the buffer is not reused before its bytes left)."""
+
+    def __init__(self, dev, blocks: int, block_bytes: int, depth: int):
+        from brpc_tpu_torch.ops.echo_kernel import echo_reference
+
+        self.dev = dev
+        self.cuda = dev.type == "cuda"
+        self.stream = torch.cuda.Stream(dev) if self.cuda else None
+        self.slots = [torch.empty(block_bytes, dtype=torch.uint8,
+                                  device=dev) for _ in range(depth)]
+        self.events = [None] * depth
+        # The plain checksum of each block's pattern, on the card.
+        self.want = torch.stack([
+            echo_reference(_lanes(block_pattern(i, block_bytes, dev)))[1]
+            .view(torch.int32) for i in range(blocks)])
+        self.bad = torch.zeros((), dtype=torch.int64, device=dev)
+        if self.cuda:  # the side stream reads what the current one made
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
+        self.landed = 0
+        self.bytes = 0
+
+    def _on_side(self):
+        return (torch.cuda.stream(self.stream) if self.cuda
+                else contextlib.nullcontext())
+
+    def land(self, li: int, bi: int, buf, n: int) -> None:
+        from brpc_tpu_torch.ops.echo_kernel import echo_fused
+
+        with self._on_side():
+            slot = self.slots[li]
+            slot[:n].copy_(buf.tensor[:n], non_blocking=True)
+            if self.cuda:
+                self.events[li] = torch.cuda.Event()
+                self.events[li].record(self.stream)
+            _, csum = echo_fused(_lanes(slot[:n]))
+            self.bad += (csum.view(torch.int32) != self.want[bi]).to(
+                torch.int64)
+        self.landed += 1
+        self.bytes += n
+
+    def ready(self, li: int) -> None:
+        if self.events[li] is not None:
+            self.events[li].synchronize()
+
+    def mismatches(self) -> int:
+        return int(self.bad)
+
+
+def _counter(name: str) -> float:
+    """One native counter, 0 when not exposed yet.  Read by name: the
+    whole-registry dump (`Vars.dump`) crashed this role on an H100 host
+    (see PERF.md), the reference's decode role too."""
+    from brpc_tpu_torch.rpc import observe
+
+    try:
+        return observe.Vars.read(name)
+    except KeyError:
+        return 0
+
+
+def run_decode(args) -> None:
+    from brpc_tpu_torch.ops import _kernels
+    from brpc_tpu_torch.ops.echo_kernel import (WRAPPER, echo_fused,
+                                                echo_reference)
+    from brpc_tpu_torch.rpc import RmaBuffer, Server, kv, observe, set_flag
+
+    dev = resolve_device(args.device)
+
+    if args.timeline:
+        set_flag("trpc_timeline", "true")
+    observe.enable_rpcz()
+    # Observability-only server: /rpcz + /timeline for the stitcher.
+    srv = Server()
+    srv.start(args.port)
+    print(f"PORT {srv.port}", flush=True)
+
+    block_bytes = args.block_mb << 20
+    cli = kv.KvClient(args.prefill, use_shm=not args.tcp,
+                      timeout_ms=30000, qos_tenant="kv", qos_priority=3)
+    metas = [cli.lookup(1 + i) for i in range(args.blocks)]
+    node_ch = cli._node_channel(metas[0].node)
+
+    rma0 = _counter("rma_rx_msgs")
+    _kernels.reset_launches()
+
+    # One content check before the measured loop: block 0 must match its
+    # generator pattern exactly (the whole-or-nothing guard, verified) —
+    # compared on the card, where K1 on the landed bytes must also equal
+    # the plain version on the same tensor.
+    land_check = RmaBuffer(block_bytes, device=dev)
+    n = cli.fetch(1, resp_buf=land_check)
+    back = land_check.tensor.to(dev)
+    verified = n == block_bytes and torch.equal(
+        back, block_pattern(0, block_bytes, dev))
+    copy, csum = echo_fused(_lanes(back))
+    ref_copy, ref_sum = echo_reference(_lanes(back))
+    k1_matches_plain = bool(
+        torch.equal(copy.view(torch.int32), ref_copy.view(torch.int32))
+        and int(csum.view(torch.int32)) == int(ref_sum.view(torch.int32)))
+    del back, copy, ref_copy
+    land_check.free()
+
+    # D-deep pull pipeline: D landing buffers cycle through submits so
+    # the shm rails stay saturated (pull k, resubmit k — no bubbles).
+    pipe = node_ch.pipeline()
+    lands = [RmaBuffer(block_bytes, device=dev) for _ in range(args.depth)]
+    onto = _DeviceLanding(dev, args.blocks, block_bytes, args.depth)
+    free = list(range(args.depth))
+    tok2land: dict[int, tuple[int, int]] = {}
+    fetched = 0
+    failures = 0
+    bytes_done = 0
+    rr = 0
+
+    def submit_one() -> None:
+        nonlocal rr
+        li = free.pop()
+        onto.ready(li)  # its last H2D copy has left the buffer
+        bi = rr % len(metas)
+        m = metas[bi]
+        rr += 1
+        req = kv._req(m.block_id, generation=m.generation)
+        toks = pipe.submit(kv.FETCH_METHOD, [req],
+                           resp_bufs=[lands[li]], timeout_ms=30000)
+        tok2land[toks[0]] = (li, bi)
+
+    for _ in range(args.depth):
+        submit_one()
+    t0 = time.perf_counter()
+    end = t0 + args.seconds
+    draining = False
+    while tok2land:
+        cs = pipe.poll(max_n=args.depth, timeout_ms=30000)
+        if not cs:
+            failures += len(tok2land)
+            break
+        for c in cs:
+            li, bi = tok2land.pop(c.token)
+            if c.ok:
+                fetched += 1
+                bytes_done += c.resp_len
+                onto.land(li, bi, lands[li], c.resp_len)
+            else:
+                failures += 1
+            free.append(li)
+        if not draining and time.perf_counter() >= end:
+            draining = True
+        if not draining:
+            while free:
+                submit_one()
+    dt = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dev_dt = time.perf_counter() - t0
+    k1_launches = _kernels.launches[WRAPPER]
+    device_verified = bool(verified and k1_matches_plain
+                           and onto.landed == fetched
+                           and onto.mismatches() == 0)
+    rma1 = _counter("rma_rx_msgs")
+    # Cancellation-propagation probe: pulls abandoned right
+    # after submit.  Without the deadline plane every one of these
+    # blocks ships to a dead caller (wasted_before); with cascading
+    # cancel the serving side's put aborts between chunks, and the
+    # saved bytes show up in deadline_cancel_saved_bytes (plus fully
+    # shed fetches that never started a put).
+    saved0 = _counter("deadline_cancel_saved_bytes")
+    # One DISTINCT free landing buffer per probe pull (the PR-13 landing
+    # rule allows one direct bind per region); a drained pipeline has
+    # all `depth` buffers free — if the measured loop broke on a poll
+    # timeout some stayed outstanding, and the probe shrinks (or skips)
+    # rather than alias or crash.
+    probe_n = min(len(metas), len(free))
+    probe_bytes = probe_n * block_bytes
+    probe_shipped = 0
+    # Submit a burst as deep as the pipeline, then abandon it whole —
+    # still-queued pulls shed via cancel tombstones, the in-flight one
+    # aborts between chunks.
+    probe_toks: list[int] = []
+    for i in range(probe_n):
+        m = metas[i % len(metas)]
+        req = kv._req(m.block_id, generation=m.generation)
+        toks = pipe.submit(kv.FETCH_METHOD, [req],
+                           resp_bufs=[lands[free[i]]],
+                           timeout_ms=30000)
+        probe_toks.append(toks[0])
+    for t in probe_toks:
+        pipe.cancel(t)
+    pending = set(probe_toks)
+    deadline = time.perf_counter() + 20
+    while pending and time.perf_counter() < deadline:
+        for c in pipe.poll(max_n=max(probe_n, 1), timeout_ms=5000):
+            pending.discard(c.token)
+            if c.ok:
+                probe_shipped += c.resp_len
+    cancel_saved = _counter("deadline_cancel_saved_bytes") - saved0
+    pipe.close()
+    row = {
+        "kv_goodput_gbps": round(bytes_done / dt / 1e9, 3),
+        "kv_fetches": fetched,
+        "kv_failures": failures,
+        "kv_bytes": bytes_done,
+        "verified": verified,
+        "rpc_path": "rma" if rma1 > rma0 else "copy",
+        "cache_hits": cli.cache_hits,
+        "cache_misses": cli.cache_misses,
+        # Wasted-work accounting: bytes the abandoned pulls
+        # WOULD have shipped without cancellation propagation (before)
+        # vs what the client actually observed landing (after); the
+        # server-side saved counter covers mid-transfer aborts.
+        "cancel_wasted_bytes_before": probe_bytes,
+        "cancel_wasted_bytes_after": probe_shipped,
+        "cancel_saved_bytes": cancel_saved,
+        "device": str(dev),
+        "device_goodput_gbps": round(onto.bytes / dev_dt / 1e9, 3),
+        "device_verified": device_verified,
+        "k1_launches": k1_launches,
+    }
+    print("ROW " + json.dumps(row), flush=True)
+    sys.stdin.readline()  # stay up for the trace fetch
+    for b in lands:
+        b.free()
+    cli.close()
+    srv.stop()
+
+
+# --------------------------------------------------------------- driver ----
+
+def _spawn_role(role: str, extra: list[str]) -> tuple[subprocess.Popen, int]:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("PYTHONFAULTHANDLER", "1")  # a role that crashes says where
+    p = subprocess.Popen(
+        [sys.executable, "-m", MODULE, "--role", role] + extra,
+        env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    port = None
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        line = p.stdout.readline()
+        if not line:
+            raise RuntimeError(f"{role} died before PORT")
+        if line.startswith("PORT "):
+            port = int(line.split()[1])
+            break
+    if port is None:
+        raise RuntimeError(f"{role} never printed PORT")
+    return p, port
+
+
+def _p99(lat: list[float]) -> float:
+    lat = sorted(lat)
+    return lat[len(lat) * 99 // 100] if lat else 0.0
+
+
+def run_driver(args) -> dict:
+    from brpc_tpu_torch.rpc import Channel, get_flag, observe
+
+    dev = resolve_device(args.device)  # no card and no --device: raise
+    observe.enable_rpcz()
+    base_flags = [
+        "--device", str(dev),
+        "--blocks", str(args.blocks), "--block-mb", str(args.block_mb),
+        "--qos-lanes", str(args.qos_lanes),
+        "--lane-weights", args.lane_weights,
+        "--qos-spec", args.qos_spec, "--lease-ms", str(args.lease_ms),
+    ]
+    if args.timeline:
+        base_flags.append("--timeline")
+    pre_extra = list(base_flags)
+    if args.chaos:
+        pre_extra += ["--chaos", args.chaos]
+    prefill, pre_port = _spawn_role("prefill", pre_extra)
+    decode = None
+    try:
+        tok = Channel(f"127.0.0.1:{pre_port}", timeout_ms=10000,
+                      qos_tenant="tok", qos_priority=0)
+
+        def sample(seconds: float) -> list[float]:
+            lat = []
+            stop = time.perf_counter() + seconds
+            payload = b"t" * 1024
+            while time.perf_counter() < stop:
+                t0 = time.perf_counter()
+                tok.call("Token.Step", payload)
+                lat.append((time.perf_counter() - t0) * 1e6)
+            return lat
+
+        for _ in range(100):  # warm connections, pools, lanes
+            tok.call("Token.Step", b"t" * 1024)
+        unloaded = sample(min(3.0, args.seconds / 2))
+
+        dec_extra = base_flags + [
+            "--prefill", f"127.0.0.1:{pre_port}",
+            "--depth", str(args.depth), "--seconds", str(args.seconds),
+        ]
+        if args.tcp:
+            dec_extra.append("--tcp")
+        decode, dec_port = _spawn_role("decode", dec_extra)
+        time.sleep(1.0)  # let the pull pipeline reach steady state
+        loaded = sample(max(args.seconds - 2.0, 2.0))
+        dec_row = None
+        deadline = time.time() + args.seconds + 60
+        while time.time() < deadline:
+            line = decode.stdout.readline()
+            if not line:
+                break
+            if line.startswith("ROW "):
+                dec_row = json.loads(line[4:])
+                break
+        if dec_row is None:
+            raise RuntimeError("decode child produced no row")
+
+        # Prefix-cache phase, SAME run as the goodput/p99
+        # measurement above: the prefill process replays the Zipfian
+        # prompt mix against its content-addressed store, then this
+        # process replays the hottest prompt's match -> hint -> hinted
+        # c_hash_bl call path from the outside.
+        prefix_row = None
+        if not args.no_prefix:
+            spec = dict(PREFIX_DEFAULTS)
+            spec["seed"] = args.prefix_seed
+            spec["samples"] = args.prefix_samples
+            spec["tenant_weights"] = _shape_tenant_weights(
+                args.shape, spec["tenants"])
+            prefill.stdin.write("PREFIX " + json.dumps(spec) + "\n")
+            prefill.stdin.flush()
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                line = prefill.stdout.readline()
+                if not line:
+                    break
+                if line.startswith("PREFIXROW "):
+                    prefix_row = json.loads(line[len("PREFIXROW "):])
+                    break
+            if prefix_row is None:
+                raise RuntimeError("prefill child produced no prefix row")
+            hot_tokens = prefix_row.pop("hot_tokens")
+            from brpc_tpu_torch.rpc import kv
+            from brpc_tpu_torch.rpc.client import (ClusterChannel,
+                                                   lb_hint_counters)
+
+            bt = prefix_row["prefix_block_tokens"]
+            pb = prefix_row["prefix_block_bytes"]
+            cli = kv.KvClient(f"127.0.0.1:{pre_port}", use_shm=False,
+                              timeout_ms=10000)
+            ch = ClusterChannel(f"list://127.0.0.1:{pre_port}",
+                                "c_hash_bl", timeout_ms=10000)
+            try:
+                groups = cli.match_prefix(hot_tokens, bt)
+                hint = kv.KvClient.prefix_hint(groups)
+                h0 = lb_hint_counters()
+                for _ in range(8):
+                    ch.call("Token.Step", b"t" * 256, hint=hint)
+                h1 = lb_hint_counters()
+                blocks = cli.fetch_prefix(hot_tokens, bt)
+                keys = kv.prefix_chain(hot_tokens, bt)
+                prefix_row.update({
+                    "prefix_hint_node": hint,
+                    "prefix_matched_depth": len(groups),
+                    "prefix_fetch_blocks": len(blocks),
+                    # Whole-or-nothing, from a DIFFERENT process: every
+                    # fetched block byte-matches its content recipe.
+                    "prefix_fetch_verified": bool(
+                        len(blocks) == len(keys)
+                        and all(b == _prefix_block_bytes(tuple(k), pb)
+                                for b, k in zip(blocks, keys))),
+                    "lb_hint_hit": h1[0] - h0[0],
+                    "lb_hint_veto": h1[1] - h0[1],
+                    "lb_hint_miss": h1[2] - h0[2],
+                })
+            finally:
+                ch.close()
+                cli.close()
+
+        trace_summary = None
+        if args.out:
+            from brpc_tpu_torch.tools import trace_stitch
+
+            eps = [f"127.0.0.1:{pre_port}", f"127.0.0.1:{dec_port}"]
+            dumps = {ep: trace_stitch.fetch_rpcz(ep) for ep in eps}
+            dumps["driver"] = trace_stitch.local_rpcz()
+            tl = None
+            if args.timeline:
+                tl = {ep: trace_stitch.fetch_timeline(ep) for ep in eps}
+            trace = trace_stitch.stitch(dumps, timeline_dumps=tl)
+            trace_summary = trace["stitch"]
+            trace_summary["path"] = args.out
+            # Per-node span presence: the artifact must carry BOTH roles.
+            by_pid: dict[str, int] = {}
+            for e in trace["traceEvents"]:
+                if e.get("ph") == "X" and e.get("cat") in ("server",
+                                                           "client"):
+                    by_pid[str(e["pid"])] = by_pid.get(str(e["pid"]), 0) + 1
+            trace_summary["span_nodes"] = len(by_pid)
+            with open(args.out, "w") as f:
+                json.dump(trace, f)
+        import statistics
+
+        p99_unloaded = _p99(unloaded)
+        p99_loaded = _p99(loaded)
+        row = {
+            "workload": "kv_disagg_prefill_decode",
+            **dec_row,
+            "token_median_unloaded_us": round(statistics.median(unloaded)),
+            "token_median_loaded_us": round(statistics.median(loaded)),
+            "blocks": args.blocks,
+            "block_bytes": args.block_mb << 20,
+            "depth": args.depth,
+            "token_p99_unloaded_us": round(p99_unloaded),
+            "token_p99_loaded_us": round(p99_loaded),
+            "ratio_p99": round(p99_loaded / max(p99_unloaded, 1.0), 3),
+            "token_samples_loaded": len(loaded),
+            "qos_lanes": args.qos_lanes,
+            "lane_weights": args.lane_weights,
+            "qos_spec": args.qos_spec,
+            "rma_rails_shm": get_flag("trpc_shm_rails"),
+            "timeline": bool(args.timeline),
+            "chaos": args.chaos or None,
+            "shape": args.shape or None,
+            **(prefix_row or {}),
+            "trace": trace_summary,
+        }
+        tok.close()
+        return row
+    finally:
+        for p in (decode, prefill):
+            if p is None:
+                continue
+            try:
+                p.stdin.close()
+                p.wait(timeout=15)
+            except Exception:  # noqa: BLE001
+                p.kill()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--role", choices=["driver", "prefill", "decode"],
+                    default="driver")
+    ap.add_argument("--device", default=None,
+                    help="device of the pages and landed blocks (default: "
+                         "the GPU; with none, pass --device cpu)")
+    ap.add_argument("--blocks", type=int, default=DEFAULTS["blocks"])
+    ap.add_argument("--block-mb", type=int, default=DEFAULTS["block_mb"])
+    ap.add_argument("--depth", type=int, default=DEFAULTS["depth"])
+    ap.add_argument("--seconds", type=float, default=DEFAULTS["seconds"])
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--prefill", default="",
+                    help="decode role: prefill node host:port")
+    ap.add_argument("--qos-lanes", type=int, default=DEFAULTS["qos_lanes"])
+    ap.add_argument("--lane-weights", default=DEFAULTS["lane_weights"])
+    ap.add_argument("--qos-spec", default=DEFAULTS["qos_spec"])
+    ap.add_argument("--lease-ms", type=int, default=120000)
+    ap.add_argument("--tcp", action="store_true",
+                    help="pull blocks over TCP instead of shm (copy path)")
+    ap.add_argument("--chaos", default="",
+                    help="fault schedule installed in the prefill process")
+    ap.add_argument("--no-prefix", action="store_true",
+                    help="skip the prefix-cache phase")
+    ap.add_argument("--shape", default="",
+                    help="capture file whose per-tenant record shares "
+                         "set the prompt mix (e.g. "
+                         "tests/data/golden_mixed.cap)")
+    ap.add_argument("--prefix-samples", type=int,
+                    default=PREFIX_DEFAULTS["samples"])
+    ap.add_argument("--prefix-seed", type=int,
+                    default=PREFIX_DEFAULTS["seed"])
+    ap.add_argument("--timeline", action="store_true",
+                    help="record + stitch flight-recorder timelines")
+    ap.add_argument("--out", default="",
+                    help="driver: write the stitched Perfetto trace here")
+    ap.add_argument("--json", action="store_true",
+                    help="driver: print the result row as one JSON line")
+    args = ap.parse_args(argv)
+    if args.role == "prefill":
+        run_prefill(args)
+        return 0
+    if args.role == "decode":
+        if not args.prefill:
+            ap.error("--role decode requires --prefill")
+        run_decode(args)
+        return 0
+    row = run_driver(args)
+    if args.json:
+        print(json.dumps(row))
+    else:
+        print(json.dumps(row, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -62,7 +62,20 @@ From the root of a checkout it:
    compute on the card, with every launch count reset just before and read
    just after: sequential and overlapped results byte-exact, every member's
    gathered buffers equal to the u32 sum over members of the plain pieces,
-   readiness triggers seen, no session or ready map left.
+   readiness triggers seen, no session or ready map left;
+12. probes which CUDA pointers can enter the IOBuf path
+   (`tools/cuda_probe.py`, attempts A to E in children of their own) and
+   prints each result;
+13. sweeps K1's launch geometry (`tools/tune_echo.py`, the short set, the
+   default among it): every geometry bit-exact at 1 KiB, 1, 16 and 64 MiB,
+   then timed on the card alone (CUDA-graph marginal cost) with its goodput
+   and hbm_frac, and the best beside K1's own entry; K1's `ms` in step 5 is
+   timed the same host-free way, its old wrapper loop kept as `wrapper_ms`;
+14. runs the two-process KV disaggregation workload
+   (`python -m brpc_tpu_torch.tools.kv_disagg --json --seconds 2`, 12 x 8
+   MiB at depth 4): its row must be verified on the card with K1 launched
+   on every landed block, path rma, no failed fetch; the decode process's
+   K1 launches (counted from 0 in that process) join the kernels line.
 
 It prints a `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  It exits non-zero, printing no result,
@@ -374,6 +387,7 @@ def phase_timing(dev, card: str, log) -> dict:
 
     from brpc_tpu_torch.ops.echo_kernel import echo_fused, echo_reference
     from brpc_tpu_torch.ops.roofline import hbm_peak_gbps
+    from brpc_tpu_torch.tools.tune_echo import CHAIN, time_k1
 
     lanes = MAIN_BYTES // 4
     p = torch.arange(lanes, dtype=torch.int32, device=dev).view(torch.uint32)
@@ -393,29 +407,113 @@ def phase_timing(dev, card: str, log) -> dict:
     def yardstick():  # PyTorch calls for the same function: copy + sum
         return pi.clone(), torch.sum(pi, dtype=torch.int64) & MASK
 
+    def host_free():  # K1 alone: a CUDA-graph marginal, no host work
+        ms = time_k1(dev)
+        check(ms is not None, "K1's longer graph was not slower")
+        return ms
+
     t = {}
-    # Turns (plain, kernel, kernel, plain) on one card; mean of the turns.
-    for key, fn in (("plain_ms", lambda: echo_reference(p)),
-                    ("ms", lambda: echo_fused(p)),
-                    ("yardstick_ms", yardstick),
-                    ("ms", lambda: echo_fused(p)),
+    # Turns on one card; mean of the turns.  `ms` is K1 timed on the card
+    # alone; `wrapper_ms` the old loop of 50 `echo_fused` calls, each
+    # with its two allocations, fill and ctypes launch.
+    for key, fn in (("ms", None), ("plain_ms", lambda: echo_reference(p)),
+                    ("wrapper_ms", lambda: echo_fused(p)),
+                    ("yardstick_ms", yardstick), ("ms", None),
+                    ("wrapper_ms", lambda: echo_fused(p)),
                     ("plain_ms", lambda: echo_reference(p)),
                     ("yardstick_ms", yardstick)):
-        t.setdefault(key, []).append(cuda_ms(fn, iters=50))
+        t.setdefault(key, []).append(
+            host_free() if fn is None else cuda_ms(fn, iters=50))
     t = {k: sum(v) / len(v) for k, v in t.items()}
     out = {"card": card, "device_name": name, "bytes": MAIN_BYTES,
-           "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "ms": t["ms"], "wrapper_ms": t["wrapper_ms"],
+           "ms_method": (f"CUDA graphs of {CHAIN[1]} and {CHAIN[0]} "
+                         "launches on preallocated buffers, marginal"),
+           "plain_ms": t["plain_ms"],
            "yardstick_ms": t["yardstick_ms"],
            "yardstick": "clone() + torch.sum(dtype=int64) & mask (two calls)",
            "bound_ms": bound_ms, "bound_by": bound_by,
            "hbm_peak_gbps": peak,
            "hbm_frac": bound_ms / t["ms"] if bound_ms else None,
            "kernel_gbps": bytes_moved / (t["ms"] * 1e-3) / 1e9}
-    log(f"K1 64 MiB [{card}]: {t['ms']} ms, bound {bound_ms} ms "
-        f"({bound_by}, {peak} GB/s from ops/roofline.py), hbm_frac "
-        f"{out['hbm_frac']}; plain {t['plain_ms']} ms; yardstick "
+    log(f"K1 64 MiB [{card}]: {t['ms']} ms on the card alone "
+        f"({out['ms_method']}), wrapper_ms {t['wrapper_ms']}; bound "
+        f"{bound_ms} ms ({bound_by}, {peak} GB/s from ops/roofline.py), "
+        f"hbm_frac {out['hbm_frac']}; plain {t['plain_ms']} ms; yardstick "
         f"{t['yardstick_ms']} ms ({out['yardstick']})")
     return out
+
+
+def phase_tune_echo(dev, card: str, log) -> dict:
+    """K1's launch-geometry sweep over the short set: every geometry
+    bit-exact at the four sizes, then timed on the card alone."""
+    from brpc_tpu_torch.tools import tune_echo
+
+    out = tune_echo.sweep(tune_echo.QUICK, dev,
+                          log=lambda row: log(f"  geometry {row}"))
+    check(not out["failed"], f"geometries failed: {out['failed']}")
+    check(all(r["goodput_gbps"] for r in out["rows"]),
+          "a geometry was not timed")
+    default = next(r for r in out["rows"] if r["default"])
+    best, k1 = out["best"], out["k1_default"]
+    log(f"tune_echo [{card}]: {len(out['rows'])} geometries exact at "
+        f"{tune_echo.SIZES} bytes; best (threads, unroll, blocks/SM) = "
+        f"({best['threads']}, {best['unroll']}, {best['blocks_per_sm']}) "
+        f"{best['goodput_gbps']} GB/s, hbm_frac {best['hbm_frac']}; the "
+        f"default through the geometry entry {default['goodput_gbps']} "
+        f"GB/s, K1's own entry {k1['goodput_gbps']} GB/s "
+        f"({k1['ms']} ms, hbm_frac {k1['hbm_frac']})")
+    return {"rows": [[r["threads"], r["unroll"], r["blocks_per_sm"],
+                      r["ms"], r["goodput_gbps"], r["hbm_frac"]]
+                     for r in out["rows"]],
+            "row_keys": ["threads", "unroll", "blocks_per_sm", "ms",
+                         "goodput_gbps", "hbm_frac"],
+            "best": best, "k1_default": k1}
+
+
+def phase_cuda_probe(log) -> dict:
+    """Which CUDA pointers enter the IOBuf path: attempts A to E on the
+    card, each in a child of its own."""
+    from brpc_tpu_torch.tools import cuda_probe
+
+    out = cuda_probe.probe("cuda")
+    for name, res in out["attempts"].items():
+        log(f"  cuda_probe {name}: {json.dumps(res)}")
+        check("timeout" not in res.get("error", "")
+              and "no result" not in res.get("error", ""),
+              f"cuda_probe {name} did not finish: {res}")
+    att = out["attempts"]
+    # The port's landing paths rest on these two.
+    check(att["C_host_staging"]["ok"] and att["C_host_staging"]["pinned"],
+          "cuda_probe C: no pinned staging copy")
+    check(att["D_register_our_slab"]["ok"],
+          "cuda_probe D: the registered slab was not written by the card")
+    return out
+
+
+def phase_kv_disagg(card: str, log) -> dict:
+    """The two-process KV disaggregation workload at its defaults, as a
+    user runs it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "brpc_tpu_torch.tools.kv_disagg", "--json",
+         "--seconds", "2"], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    check(proc.returncode == 0,
+          f"kv_disagg rc {proc.returncode}: {proc.stderr[-3000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("kv_disagg row: " + json.dumps(row))
+    for key in ("verified", "prefix_fetch_verified", "device_verified"):
+        check(row[key] is True, f"kv_disagg {key} is {row[key]}")
+    check(row["rpc_path"] == "rma", f"kv_disagg path {row['rpc_path']}")
+    check(row["k1_launches"] > 0, "kv_disagg launched K1 no time")
+    check(row["kv_failures"] == 0, f"{row['kv_failures']} failed fetches")
+    log(f"kv_disagg [{card}]: {row['kv_goodput_gbps']} GB/s over shm "
+        f"({row['rpc_path']}), {row['device_goodput_gbps']} GB/s onto the "
+        f"card, token p99 {row['token_p99_unloaded_us']} -> "
+        f"{row['token_p99_loaded_us']} us (ratio {row['ratio_p99']}), "
+        f"{row['k1_launches']} K1 launches in the decode process")
+    return row
 
 
 def _int_bits(t):
@@ -1247,6 +1345,9 @@ def run(out_path: str | None) -> int:
     t0 = time.perf_counter()
     phase_build(log)
     phase_s = {"build": time.perf_counter() - t0}
+    t_probe = time.perf_counter()
+    probe = phase_cuda_probe(log)
+    phase_s["cuda_probe"] = time.perf_counter() - t_probe
     max_err = phase_kernel_vs_plain(dev, log)
     phase_step(dev, log)
 
@@ -1258,6 +1359,9 @@ def run(out_path: str | None) -> int:
     log(f"main path launches: {launches}")
 
     timing = phase_timing(dev, card, log)
+    t_tune = time.perf_counter()
+    tune = phase_tune_echo(dev, card, log)
+    phase_s["tune_echo"] = time.perf_counter() - t_tune
     ring_err = phase_ring_vs_plain(dev, log)
 
     _kernels.reset_launches()
@@ -1292,6 +1396,10 @@ def run(out_path: str | None) -> int:
     log(f"pipeline step launches: {{{LCG_WRAPPER!r}: "
         f"{pipeline['launches']}}}")
     phase_s.update(kv=t_pipe - t_kv, pipeline=time.perf_counter() - t_pipe)
+
+    t_disagg = time.perf_counter()
+    disagg = phase_kv_disagg(card, log)
+    phase_s["kv_disagg"] = time.perf_counter() - t_disagg
     log(f"phase seconds: {phase_s}")
     timing_line = dict(timing, rpc_gbps=main["rpc_gbps"],
                        transport=main["transport"],
@@ -1300,7 +1408,9 @@ def run(out_path: str | None) -> int:
                        roundtrip_verified=main["roundtrip_verified"],
                        ring=dict(ring_timing, **multi),
                        batch=batch, kv=kv_path,
-                       pipeline=pipeline, phase_s=phase_s,
+                       pipeline=pipeline, tune_echo=tune,
+                       kv_disagg=disagg,
+                       cuda_probe=probe["attempts"], phase_s=phase_s,
                        wall_s=time.perf_counter() - t0)
     log("timing: " + json.dumps(timing_line))
     kernels = {"kernels": [{
@@ -1308,7 +1418,7 @@ def run(out_path: str | None) -> int:
         "source": "brpc_tpu_torch/csrc/echo_kernel.cu",
         "replaces": "brpc_tpu/ops/echo_kernel.py:26",
         "launches": (launches[WRAPPER] + batch_launches[WRAPPER]
-                     + kv_launches[WRAPPER]),
+                     + kv_launches[WRAPPER] + disagg["k1_launches"]),
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

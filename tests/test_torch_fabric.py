@@ -283,3 +283,52 @@ def test_many_peers_stress_rendezvous():
         total = int((want + k).sum()) % 1000003
         want = torch.full_like(want, total)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mesh,axis", AXES)
+def test_check_vma_false_runs_in_both_packages(mesh, axis):
+    """The reference's `spmd(..., check_vma=False)` keyword is accepted by
+    the port, and both give the same psum."""
+    arr = _data("int32", (8, 3), seed=3)
+    jfab, tfab = _fabrics(mesh)
+    every = MESHES[mesh][1]
+    jfn = jax.jit(jfab.spmd(lambda x: lax.psum(x, axis), JP(every),
+                            JP(every), check_vma=False))
+    tfn = tfab.spmd(lambda x: coll.psum(x, axis), P(every), P(every),
+                    check_vma=False)
+    want = np.asarray(jfn(jax.numpy.asarray(arr)))
+    got = _np(tfn(tensor_from_numpy(arr, "cpu")))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("check_vma", [False, True])
+def test_check_vma_true_passes_a_true_replica(check_vma):
+    """A psum over every axis is the same on every peer: P() holds it
+    under either setting, and the value is the global sum."""
+    fab = Fabric.auto((2, 4), ("dp", "link"), devices="cpu",
+                      timeout_s=TIMEOUT_S)
+    x = torch.arange(8 * 2, dtype=torch.int32).reshape(8, 2)
+    got = fab.spmd(lambda v: coll.psum(v, ("dp", "link")),
+                   P(("dp", "link")), P(), check_vma=check_vma)(x)
+    assert torch.equal(got, x.reshape(8, 1, 2).sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("out_spec,varies_on", [
+    (P(), "link"), (P(), "dp"), (P("dp"), "link"),
+    ((P("link"), P()), "dp")])
+def test_check_vma_true_raises_on_a_replica_that_differs(out_spec,
+                                                         varies_on):
+    """An output declared replicated along an axis whose peers disagree
+    raises under check_vma=True and is peer 0's row under False."""
+    fab = Fabric.auto((2, 4), ("dp", "link"), devices="cpu",
+                      timeout_s=TIMEOUT_S)
+
+    def body(v):
+        out = v + coll.axis_index(varies_on).to(v.dtype)
+        return (v, out) if isinstance(out_spec, tuple) else out
+
+    x = torch.zeros(8, 2, dtype=torch.int32)
+    in_spec = P(("dp", "link"))
+    with pytest.raises(ValueError, match="check_vma"):
+        fab.spmd(body, in_spec, out_spec, check_vma=True)(x)
+    fab.spmd(body, in_spec, out_spec, check_vma=False)(x)

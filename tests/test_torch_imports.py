@@ -66,7 +66,47 @@ def test_forbidden_pattern_tells_port_from_reference():
 def test_slice_c2_modules_are_covered(module):
     """The modules of slice C2 are among those imported without jax above,
     and their sources among those scanned."""
+    _assert_covered(module)
+
+
+TOOLS = ["trace_stitch", "kv_disagg", "tune_echo", "cuda_probe",
+         "make_golden_capture", "traffic_replay", "fleet_top",
+         "load_orchestrator"]
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_slice_d_tools_are_covered(name):
+    """Every tool of slice D is a module of the port, imported without jax
+    above and scanned; no line of it, code strings included, imports the
+    reference, and no spawn runs a file in place of the port's module."""
+    module = f"brpc_tpu_torch.tools.{name}"
+    _assert_covered(module)
+    src = (PORT / "tools" / f"{name}.py").read_text()
+    assert not re.search(r"(?:from|import)\s+brpc_tpu[.\s]", src), name
+    assert not re.search(r"Popen\(\s*\[\s*sys\.executable,\s*(?:os|__file__)",
+                         src), name
+
+
+def _assert_covered(module):
     assert module in _modules()
     path = REPO.joinpath(*module.split("."))
     path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
     assert path in SOURCES
+
+
+def test_package_exports_fabric_without_jax():
+    """`from brpc_tpu_torch import Fabric` works, as `from brpc_tpu import
+    Fabric` does, and imports no jax."""
+    code = (
+        "import sys\n"
+        "from brpc_tpu_torch import Fabric\n"
+        "from brpc_tpu_torch.parallel import Fabric as F2\n"
+        "assert Fabric is F2\n"
+        "f = Fabric.auto((2,), ('link',), devices='cpu')\n"
+        "assert f.size == 2\n"
+        "assert 'jax' not in sys.modules and 'brpc_tpu' not in sys.modules\n"
+        "print('OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "OK"
