@@ -174,6 +174,8 @@ class SelectiveChannel:
                 return coll.psum(picked, axis)
 
             fn = self.fabric.spmd(spmd, in_specs=(P(), P()), out_specs=P())
+            # Made where the fabric takes its inputs (the first peer's
+            # device); spmd places each peer's copy on that peer's device.
             device = self.fabric.device
             return lambda request, chosen: fn(
                 request, torch.tensor([chosen], dtype=torch.int32,

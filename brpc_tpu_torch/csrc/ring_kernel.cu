@@ -1,5 +1,5 @@
-// K2: the all-gather of one chunk per logical peer, for Hopper (sm_90a),
-// over the logical peers of one card.
+// K2: the all-gather of one chunk per peer, for Hopper (sm_90a), over
+// peers that share a card or sit on cards of one host.
 //
 // Replaces brpc_tpu/ops/ring_kernel.py::_ring_kernel (:37, the Pallas
 // kernel that ring_all_gather_pallas launches).  It computes that kernel's
@@ -8,36 +8,51 @@
 //   out[r][j*C : (j+1)*C] = local[j]   for every peer r and source j.
 //
 // The TPU kernel forwards each chunk around a ring of chips, one ICI hop at
-// a time, because a chip reaches only its neighbours.  On one card every
-// peer's buffer is in the same HBM, so a ring that emulates ICI hops buys
-// nothing: it moves each chunk through comm buffers n times over and makes
-// every hop wait for the one before.  Here each source byte is read once
-// and each output byte written once, and no CTA waits on another.
+// a time, because a chip reaches only its neighbours.  On Hopper every
+// peer's buffer is in the card's own HBM or, over NVLink, in a card the
+// launch reaches all to all (peer access enabled), so a ring that emulates
+// ICI hops buys nothing: it moves each chunk through comm buffers n times
+// over and makes every hop wait for the one before.  Here each source byte
+// is read once and each output byte written once, and no CTA waits on
+// another.  One launch serves the sources of one device (all n on one
+// card) and writes them to all n outputs, wherever those lie; the wrapper
+// (ops/ring_kernel.py) makes one launch per device that holds sources,
+// each on a stream of that device, and fences the peers' streams around
+// them with events.
 //
-// Bound: device-memory bytes, (n + n^2) * C (read n chunks, write n
-// replicated outputs): at n = 8 and C = 8 MiB that is 576 MiB, 0.180 ms at
-// the H100 SXM's published 3.35 TB/s.  The function does no arithmetic.
+// Bound on one card: device-memory bytes, (n + n^2) * C (read n chunks,
+// write n replicated outputs): at n = 8 and C = 8 MiB that is 576 MiB,
+// 0.180 ms at the H100 SXM's published 3.35 TB/s.  Across cards, per card:
+// the larger of its HBM bytes ((1 + n) * C) at 3.35 TB/s and its NVLink
+// egress ((n - 1) * C) at 450 GB/s a direction (0.130 ms at n = 8).  The
+// function does no arithmetic.
 //
 // Bulk path (C and every pointer 16-byte aligned): a persistent grid, one
-// CTA per SM, walks work units (source j, tile t) with a grid stride.  One
-// thread drives everything with Hopper's bulk copy engine (TMA, 1-D form,
-// raw pointers, no tensor map): a bulk load of the tile into a stage of a
-// ring in shared memory completes on that stage's mbarrier; then n bulk
-// stores of the stage, one to each peer's output, form one bulk group.
-// kStages - 1 loads stay in flight while a tile's stores drain, and a stage
-// is reloaded only after the stores that read it have read it
+// CTA per SM, walks work units (source slot k, tile t) with a grid stride.
+// One thread drives everything with Hopper's bulk copy engine (TMA, 1-D
+// form, raw pointers, no tensor map): a bulk load of the tile into a stage
+// of a ring in shared memory completes on that stage's mbarrier; then n
+// bulk stores of the stage, one to each peer's output, form one bulk
+// group.  kStages - 1 loads stay in flight while a tile's stores drain, and
+// a stage is reloaded only after the stores that read it have read it
 // (wait_group.read).  The stores carry an L2 evict-first hint: the outputs
 // (n^2 * C) stream through the 50 MB L2 and are not read again here.
 //
+// The bulk stores reach another card's output through its NVLink mapping
+// (peer access enabled); four H100s of one host gathered bit-exact that
+// way, no slower at 8 MiB chunks than thread stores.
+//
 // Ragged path (C or a pointer not 16-byte aligned, as a narrow view of an
 // odd-sized chunk is): the CTA's threads copy at the widest width w in
-// {8, 4, 2, 1} that divides C and every address; each element is read once
-// and stored n times.  The wrapper's plan (ops/ring_kernel.py,
-// plan_gather) chooses the path, the tile and the grid.
+// {8, 4, 2, 1} that divides C and every address; each element is read
+// once and stored n times.  The wrapper's plan (plan_gather,
+// plan_launches) chooses the path, the tile and the grid.
 //
 // Interface: plain C functions, loaded with ctypes.  brpc_ring_all_gather
-// launches on the caller's stream, does not synchronise, allocates
-// nothing, and returns the launch's cudaError_t.
+// launches on the stream it is given (of the current device), does not
+// synchronise, allocates nothing, and returns the launch's cudaError_t.
+// brpc_ring_enable_peers enables peer access between the cards a gather
+// spans.
 
 #include <cuda_runtime.h>
 
@@ -54,11 +69,12 @@ constexpr int kRaggedThreads = 256;
 constexpr size_t kBulkSmem = static_cast<size_t>(kStages) * kMaxTile;
 
 struct GatherArgs {
-  const unsigned char* local[kMaxPeers];
-  unsigned char* out[kMaxPeers];
+  const unsigned char* local[kMaxPeers];  // this launch's m sources
+  int slot[kMaxPeers];                    // source k is chunk slot[k]
+  unsigned char* out[kMaxPeers];          // every peer's output
   unsigned long long chunk_bytes;  // C
   unsigned long long tile_bytes;   // T: C is cut into ceil(C / T) tiles
-  unsigned long long units;        // n * tiles; u = (u / tiles, u % tiles)
+  unsigned long long units;        // m * tiles; u = (u / tiles, u % tiles)
   int n;
 };
 
@@ -135,7 +151,8 @@ __global__ void __launch_bounds__(kBulkThreads)
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
                : "=l"(evict_first));
 
-  // Unit k of this CTA: source j, byte offset `off` into the chunk, bytes.
+  // Unit k of this CTA: source slot j, byte offset `off` into the chunk,
+  // bytes.
   auto unit = [&](unsigned long long k, int* j, unsigned long long* off,
                   uint32_t* bytes) {
     const unsigned long long u = first + k * stride;
@@ -162,7 +179,7 @@ __global__ void __launch_bounds__(kBulkThreads)
     unsigned long long off;
     uint32_t bytes;
     unit(k, &j, &off, &bytes);
-    const unsigned long long dst = j * C + off;
+    const unsigned long long dst = a.slot[j] * C + off;
     for (int r = 0; r < a.n; ++r) {
       bulk_store(a.out[r] + dst, stage0 + s * kMaxTile, bytes, evict_first);
     }
@@ -188,7 +205,7 @@ __global__ void __launch_bounds__(kRaggedThreads)
     const unsigned long long off = (u % tiles) * T;
     const unsigned long long len = (C - off < T ? C - off : T) / sizeof(V);
     const V* src = reinterpret_cast<const V*>(a.local[j] + off);
-    const unsigned long long dst = j * C + off;
+    const unsigned long long dst = a.slot[j] * C + off;
     for (unsigned long long i = threadIdx.x; i < len; i += kRaggedThreads) {
       const V v = __ldcs(src + i);
       for (int r = 0; r < a.n; ++r) {
@@ -206,33 +223,45 @@ cudaError_t launch_ragged(const GatherArgs& a, int grid, cudaStream_t st) {
 
 }  // namespace
 
-// local/out: n device pointers each, every one aligned to `width` bytes,
-// and chunk_bytes a multiple of `width`.  width 16 takes the bulk path
-// (tile_bytes a multiple of 16, at most 32 KiB); width 8, 4, 2 or 1 the
-// ragged path (tile_bytes a multiple of width).  grid: CTAs to launch.
-extern "C" int brpc_ring_all_gather(const uint64_t* local, const uint64_t* out,
-                                    int n, unsigned long long chunk_bytes,
-                                    int width, unsigned long long tile_bytes,
-                                    int grid, void* stream) {
+// local: m device pointers (this launch's sources, on the current device),
+// slots: the chunk index of each; out: n device pointers (every peer's
+// output, on this device or a peer-accessible one).  Every pointer is
+// aligned to `width` bytes and chunk_bytes is a multiple of `width`.
+// width 16 takes the bulk path (tile_bytes a multiple of 16, at most 32
+// KiB); width 8, 4, 2 or 1 the ragged path (tile_bytes a multiple of
+// width).  grid: CTAs to launch.
+extern "C" int brpc_ring_all_gather(const uint64_t* local, const int* slots,
+                                    int m, const uint64_t* out, int n,
+                                    unsigned long long chunk_bytes, int width,
+                                    unsigned long long tile_bytes, int grid,
+                                    void* stream) {
   const bool bulk = width == 16;
-  if (n < 2 || n > kMaxPeers || grid < 1 || chunk_bytes == 0 ||
-      tile_bytes == 0 || (width & (width - 1)) != 0 || width < 1 ||
-      width > 16 || chunk_bytes % width != 0 || tile_bytes % width != 0 ||
-      (bulk && tile_bytes > kMaxTile)) {
+  if (n < 2 || n > kMaxPeers || m < 1 || m > n || grid < 1 ||
+      chunk_bytes == 0 || tile_bytes == 0 || (width & (width - 1)) != 0 ||
+      width < 1 || width > 16 || chunk_bytes % width != 0 ||
+      tile_bytes % width != 0 || (bulk && tile_bytes > kMaxTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   GatherArgs a = {};
+  for (int k = 0; k < m; ++k) {
+    if (local[k] % width != 0 || slots[k] < 0 || slots[k] >= n) {
+      return static_cast<int>(local[k] % width != 0
+                                  ? cudaErrorMisalignedAddress
+                                  : cudaErrorInvalidValue);
+    }
+    a.local[k] = reinterpret_cast<const unsigned char*>(local[k]);
+    a.slot[k] = slots[k];
+  }
   for (int r = 0; r < n; ++r) {
-    if (local[r] % width != 0 || out[r] % width != 0) {
+    if (out[r] % width != 0) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
-    a.local[r] = reinterpret_cast<const unsigned char*>(local[r]);
     a.out[r] = reinterpret_cast<unsigned char*>(out[r]);
   }
   a.n = n;
   a.chunk_bytes = chunk_bytes;
   a.tile_bytes = tile_bytes;
-  a.units = static_cast<unsigned long long>(n) *
+  a.units = static_cast<unsigned long long>(m) *
             ((chunk_bytes + tile_bytes - 1) / tile_bytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!bulk) {
@@ -258,4 +287,48 @@ extern "C" int brpc_ring_all_gather(const uint64_t* local, const uint64_t* out,
   }
   bulk_gather<<<grid, kBulkThreads, kBulkSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Enables peer access from every device of `devs` (k of them) to every
+// other, tolerating access already enabled; the current device is kept.
+// Returns 0, a cudaError_t, or -1 with bad[0], bad[1] set to the first
+// pair (from, to) for which cudaDeviceCanAccessPeer says no.
+extern "C" int brpc_ring_enable_peers(const int* devs, int k, int* bad) {
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess) {
+    return static_cast<int>(e);
+  }
+  for (int a = 0; a < k; ++a) {
+    for (int b = 0; b < k; ++b) {
+      if (devs[a] == devs[b]) {
+        continue;
+      }
+      int can = 0;
+      e = cudaDeviceCanAccessPeer(&can, devs[a], devs[b]);
+      if (e != cudaSuccess) {
+        cudaSetDevice(current);
+        return static_cast<int>(e);
+      }
+      if (!can) {
+        bad[0] = devs[a];
+        bad[1] = devs[b];
+        cudaSetDevice(current);
+        return -1;
+      }
+      e = cudaSetDevice(devs[a]);
+      if (e == cudaSuccess) {
+        e = cudaDeviceEnablePeerAccess(devs[b], 0);
+      }
+      if (e == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // clear the sticky-free error state
+        e = cudaSuccess;
+      }
+      if (e != cudaSuccess) {
+        cudaSetDevice(current);
+        return static_cast<int>(e);
+      }
+    }
+  }
+  return static_cast<int>(cudaSetDevice(current));
 }

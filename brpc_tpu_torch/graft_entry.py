@@ -4,9 +4,11 @@
 2^16-lane uint32 arange on the device (the GPU unless device="cpu").
 
 `dryrun_multichip(n_devices, device=None)` runs the full sharded data-plane
-step over a mesh of `n_devices` logical peers on one device, with the
-reference's legs, shapes and mesh choice (__graft_entry__.py:96-169), and
-checks each leg's result.
+step over a mesh of `n_devices` peers, with the reference's legs, shapes
+and mesh choice (__graft_entry__.py:96-169), and checks each leg's result.
+`device` follows `Fabric.auto`'s rules: one device shared by every peer
+(the GPU when None), or a sequence of `n_devices` devices, one per peer
+(one card each, as the reference takes `jax.devices()[:n]`, or repeats).
 """
 
 from __future__ import annotations
@@ -39,13 +41,19 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         ring_all_gather_kernel, ring_all_gather_reference)
     from brpc_tpu_torch.parallel import Fabric  # noqa: PLC0415
 
-    dev = resolve_device(device)
     n = int(n_devices)
+    if device is None or isinstance(device, (str, torch.device)):
+        devices = [resolve_device(device)] * n
+    else:
+        devices = list(device)
+        if len(devices) != n:
+            raise ValueError(f"{len(devices)} devices for {n} peers")
     if n >= 4 and n % 2 == 0:
         shape = (2, n // 2)
     else:
         shape = (1, n)
-    fabric = Fabric.auto(shape, ("dp", "link"), devices=dev)
+    fabric = Fabric.auto(shape, ("dp", "link"), devices=devices)
+    dev = fabric.device  # where globals are put and outputs assembled
     n_link = fabric.axis_size("link")
     n_dp = fabric.axis_size("dp")
 
@@ -60,7 +68,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     _check(float(csum[0]) == scale * payload.numel(), "step checksum")
 
     # N-to-N exchange (rdma_performance analogue).
-    ring = Fabric.auto((n,), ("link",), devices=dev)
+    ring = Fabric.auto((n,), ("link",), devices=devices)
     ex = make_nton_exchange(ring, "link")
     rows = np.arange(n * n * 32, dtype=np.uint32).reshape(n * n, 32)
     local = ring.put(torch.from_numpy(rows.view(np.int32)), "link").view(

@@ -9,7 +9,7 @@
   bench.py:396-520): a window of calls in flight on a batch pipeline,
   responses landing in the caller's buffers, each checked on the device.
 - ``make_nton_exchange`` → example/rdma_performance N-to-N 64MB exchange,
-  over the logical peers of a Fabric.
+  over the peers of a Fabric (cards of one host, or peers sharing one).
 - ``make_ring_exchange`` → the explicit ring variant of that exchange.
 - ``make_full_dataplane_step`` → the combined fan-out + partition + ring
   step `dryrun_multichip` runs over a multi-device mesh.

@@ -1,13 +1,16 @@
 """Ring all-gather: one chunk per peer into every peer's output.  Port of
 brpc_tpu/ops/ring_kernel.py.
 
-`ring_all_gather(chunks)` gathers one chunk per logical peer into every
+`ring_all_gather(chunks, streams)` gathers one chunk per peer into every
 peer's own output with kernel K2 (csrc/ring_kernel.cu, replacing the
-reference's Pallas `_ring_kernel`): one launch serves all peers, which on
-one card are the fabric's threads.  On one card the kernel computes the
-gather directly (each source byte read once, each output byte written
-once) instead of the reference's ring of hops; `plan_gather` chooses its
-path, tile and grid.  CUDA chunks always go to the kernel, or raise; CPU
+reference's Pallas `_ring_kernel`).  Peers may share a card or lie on
+cards of one host: K2 makes one launch per device that holds sources, on
+the stream of that device's first peer, covering that device's sources and
+writing all n outputs (one launch on one card).  It computes the gather
+directly (each source byte read once, each output byte written once)
+instead of the reference's ring of hops; `plan_launches` (one
+`plan_gather` per source device, pure Python) chooses each launch's path,
+width, tile and grid.  CUDA chunks always go to the kernel, or raise; CPU
 chunks take `ring_all_gather_plain`, the reference kernel's hop schedule in
 plain torch (as the JAX tests run the Pallas interpreter).
 
@@ -36,7 +39,7 @@ WRAPPER = "ring_all_gather"  # its name in _kernels.launches
 _MAX_PEERS = 64           # kMaxPeers
 _BULK_WIDTH = 16          # bulk copies need 16-byte addresses and sizes
 _BULK_TILE = 32 * 1024    # kMaxTile: bytes per shared-memory stage
-_RAGGED_TILE = 16 * 1024  # bytes per unit of the ragged path
+_RAGGED_TILE = 16 * 1024  # bytes per unit of the vector (ragged) path
 _RAGGED_CTAS_PER_SM = 8   # 256-thread CTAs: 2048 threads per SM
 
 
@@ -74,37 +77,40 @@ def _check(chunks: list) -> None:
                            f"{len(chunks)}")
     first = chunks[0]
     for c in chunks[1:]:
-        if (c.shape, c.dtype, c.device) != (first.shape, first.dtype,
-                                            first.device):
+        if (c.shape, c.dtype, c.device.type) != (first.shape, first.dtype,
+                                                 first.device.type):
             raise ValueError("every peer's chunk must have one shape, dtype "
-                             "and device")
+                             "and device type")
     if first.dim() == 0:
         raise ValueError("chunks must have a leading row dim")
 
 
-def _outputs(chunks: list) -> list:
-    n = len(chunks)
-    shape = (n * chunks[0].shape[0], *chunks[0].shape[1:])
-    return [torch.empty(shape, dtype=c.dtype, device=c.device)
-            for c in chunks]
+def _out_shape(chunks: list) -> tuple:
+    return (len(chunks) * chunks[0].shape[0], *chunks[0].shape[1:])
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
-def ring_all_gather(chunks: list) -> list:
-    """chunks: one (rows, ...) tensor per peer, in ring order.  Returns
-    each peer's gathered (n*rows, ...) tensor, its own allocation."""
+def ring_all_gather(chunks: list, streams=None) -> list:
+    """chunks: one (rows, ...) tensor per peer, in ring order, each on its
+    peer's device.  Returns each peer's gathered (n*rows, ...) tensor, its
+    own allocation on that peer's device.  `streams` (CUDA only): the
+    stream of each peer, on which its chunk was made and its output will
+    be read; by default each chunk's device's current stream."""
     _check(chunks)
-    dev = chunks[0].device
-    if dev.type == "cpu":
+    kind = chunks[0].device.type
+    if kind == "cpu":
         return ring_all_gather_plain(chunks)
-    if dev.type != "cuda":
+    if kind != "cuda":
         raise RuntimeError(
-            f"ring_all_gather runs on cuda or cpu tensors, not {dev}")
-    with torch.cuda.device(dev):
-        return _launch(chunks)
+            f"ring_all_gather runs on cuda or cpu tensors, not {kind}")
+    if streams is None:
+        streams = [torch.cuda.current_stream(c.device) for c in chunks]
+    if len(streams) != len(chunks):
+        raise ValueError(f"{len(streams)} streams for {len(chunks)} chunks")
+    return _launch(chunks, list(streams))
 
 
 def ring_all_gather_plain(chunks: list) -> list:
@@ -118,13 +124,14 @@ def ring_all_gather_plain(chunks: list) -> list:
     function by another route, so it checks the kernel on the card."""
     _check(chunks)
     n = len(chunks)
+    dev = chunks[0].device  # the hops run here; outputs go to each peer
     size = _bytes(chunks[0]).numel()
-    outs = _outputs(chunks)
+    outs = [torch.empty(_out_shape(chunks), dtype=c.dtype, device=dev)
+            for c in chunks]
     out = [_bytes(o).view(n, size) for o in outs]
-    comm = torch.empty((n, 2, size), dtype=torch.uint8,
-                       device=chunks[0].device)
+    comm = torch.empty((n, 2, size), dtype=torch.uint8, device=dev)
     for r, c in enumerate(chunks):
-        out[r][r] = _bytes(c.contiguous())
+        out[r][r] = _bytes(c.contiguous()).to(dev)
         comm[r, 0] = out[r][r]
     for r in range(n):
         comm[(r + 1) % n, 1] = comm[r, 0]
@@ -135,51 +142,82 @@ def ring_all_gather_plain(chunks: list) -> list:
                 comm[(r + 1) % n, parity] = comm[r, recv_slot]
         for r in range(n):
             out[r][(r - step - 1) % n] = comm[r, recv_slot]
-    return outs
+    return [o.to(c.device) for o, c in zip(outs, chunks)]
 
 
 @dataclasses.dataclass(frozen=True)
 class GatherPlan:
-    """One launch of K2: `width` 16 takes the bulk path (bulk copies
-    through shared memory), 8, 4, 2 or 1 the ragged path (threads copy
-    `width` bytes at a time).  Each chunk is cut into tiles of
-    `tile_bytes`; a unit is one (source, tile) pair, and `grid` CTAs walk
-    the `units` with a grid stride."""
+    """One launch of K2.  Path "bulk" (width 16): bulk copies through
+    shared memory, stored to every output, on this card or (over NVLink)
+    another; "ragged" (width 8, 4, 2 or 1): threads copy `width` bytes at
+    a time.  Each chunk is cut into tiles of `tile_bytes`; a unit is one
+    (source, tile) pair, and `grid` CTAs walk the `units` with a grid
+    stride.  `device` is the launch's device index and `sources` the
+    chunks it reads."""
 
     width: int
     tile_bytes: int
     units: int
     grid: int
+    path: str = "bulk"
+    device: int = 0
+    sources: tuple = ()
 
 
-def plan_gather(chunk_bytes: int, n: int, addrs, sms: int) -> GatherPlan:
-    """The launch for n chunks of `chunk_bytes` each, given every chunk's
-    and every output's address and the card's SM count.  The width is the
-    widest of 16, 8, 4, 2, 1 that divides the chunk size and every
-    address.  Raises RuntimeError for fewer than 2 or more than 64 peers."""
+def plan_gather(chunk_bytes: int, n: int, addrs, sms: int, *,
+                sources=None, device: int = 0) -> GatherPlan:
+    """The launch for `sources` (default: all n chunks) of `chunk_bytes`
+    each, given the addresses of those chunks and of every output, and the
+    SM count of the launch's device.  The width is the widest of 16, 8, 4,
+    2, 1 that divides the chunk size and every address.  Raises
+    RuntimeError for fewer than 2 or more than 64 peers."""
     if not 2 <= n <= _MAX_PEERS:
         raise RuntimeError(f"the ring kernel takes 2 to {_MAX_PEERS} peers, "
                            f"got {n}")
+    sources = tuple(range(n)) if sources is None else tuple(sources)
     width = _BULK_WIDTH
     while width > 1 and (chunk_bytes % width
                          or any(a % width for a in addrs)):
         width //= 2
-    if width == _BULK_WIDTH:
+    path = "bulk" if width == _BULK_WIDTH else "ragged"
+    if path == "bulk":
         tile, per_sm = min(_BULK_TILE, chunk_bytes), 1
     else:
         tile, per_sm = min(_RAGGED_TILE, chunk_bytes), _RAGGED_CTAS_PER_SM
-    units = n * -(-chunk_bytes // tile) if chunk_bytes else 0
-    return GatherPlan(width, tile, units, min(units, per_sm * sms))
+    units = len(sources) * -(-chunk_bytes // tile) if chunk_bytes else 0
+    return GatherPlan(width, tile, units, min(units, per_sm * sms), path,
+                      device, sources)
+
+
+def plan_launches(chunk_bytes: int, devices, src_addrs, out_addrs,
+                  sms) -> list:
+    """K2's launches for n peers whose chunk j and output j lie on device
+    index `devices[j]`: one `plan_gather` per device that holds sources,
+    in the order of its first peer, covering that device's chunks and
+    writing all n outputs.  `sms(device)` gives a device's SM count."""
+    n = len(devices)
+    plans = []
+    for dev in dict.fromkeys(devices):
+        sources = [j for j in range(n) if devices[j] == dev]
+        plans.append(plan_gather(
+            chunk_bytes, n, [src_addrs[j] for j in sources] + list(out_addrs),
+            sms(dev), sources=sources, device=dev))
+    return plans
 
 
 @functools.cache
 def _lib():
     lib = _kernels.load(KERNEL)
     lib.brpc_ring_all_gather.argtypes = [
-        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
-        ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_ulonglong,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
+        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int,
+        ctypes.c_void_p]
     lib.brpc_ring_all_gather.restype = ctypes.c_int
+    lib.brpc_ring_enable_peers.argtypes = [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
+    lib.brpc_ring_enable_peers.restype = ctypes.c_int
     return lib
 
 
@@ -188,29 +226,81 @@ def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@functools.cache
+def enable_peers(devices: tuple) -> None:
+    """Enables peer access between every pair of the CUDA device indices
+    `devices` (already enabled is fine).  Raises RuntimeError naming the
+    first pair that cannot reach the other: there is no fallback through
+    host copies."""
+    bad = (ctypes.c_int * 2)()
+    rc = _lib().brpc_ring_enable_peers(
+        (ctypes.c_int * len(devices))(*devices), len(devices), bad)
+    if rc == -1:
+        raise RuntimeError(f"cuda:{bad[0]} cannot access cuda:{bad[1]} as a "
+                           "peer (cudaDeviceCanAccessPeer is 0); the ring "
+                           "kernel needs peer access between every pair")
+    if rc != 0:
+        raise RuntimeError(f"enabling peer access among {devices} failed: "
+                           f"cudaError {rc}")
+
+
+def _launch(chunks: list, streams: list) -> list:
+    """One launch per source device, each on the stream of that device's
+    first peer, behind an event on every other peer's stream (its chunk
+    made, its output's memory free); every peer's stream then waits for
+    every launch.  Allocates only the outputs (and a contiguous copy of a chunk
+    that is not contiguous), each on its peer's stream, and never waits
+    for the card."""
+    n = len(chunks)
+    devs = [c.device.index for c in chunks]
+    shape = _out_shape(chunks)
+    current = {d: torch.cuda.current_stream(d) for d in set(devs)}
+    outs, srcs = [], []
+    for c, stream in zip(chunks, streams):
+        if stream == current[c.device.index]:
+            outs.append(torch.empty(shape, dtype=c.dtype, device=c.device))
+            srcs.append(c.contiguous())
+            continue
+        with torch.cuda.stream(stream):  # also makes its device current
+            outs.append(torch.empty(shape, dtype=c.dtype, device=c.device))
+            srcs.append(c.contiguous())
+    distinct = list(dict.fromkeys(streams))
+    # Events only where peers' streams differ: one stream orders itself.
+    ready = ({s: s.record_event() for s in distinct} if len(distinct) > 1
+             else {})
+    chunk_bytes = srcs[0].numel() * srcs[0].element_size()
+    plans = plan_launches(chunk_bytes, devs,
+                          [t.data_ptr() for t in srcs],
+                          [t.data_ptr() for t in outs], _sms)
+    if plans[0].units == 0:  # empty chunks: nothing to copy
+        return outs
+    if len(plans) > 1:
+        enable_peers(tuple(sorted(set(devs))))
+    out_ptrs = _ptrs(outs)
+    done = []
+    for plan in plans:
+        stream = streams[plan.sources[0]]
+        for other, ev in ready.items():
+            if other != stream:
+                stream.wait_event(ev)
+        with torch.cuda.device(plan.device):
+            rc = _lib().brpc_ring_all_gather(
+                _ptrs([srcs[j] for j in plan.sources]),
+                (ctypes.c_int * len(plan.sources))(*plan.sources),
+                len(plan.sources), out_ptrs, n, chunk_bytes, plan.width,
+                plan.tile_bytes, plan.grid, stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ring kernel launch failed: cudaError {rc} "
+                               f"({plan})")
+        _kernels.count_launch(WRAPPER)
+        if ready:
+            done.append((stream, stream.record_event()))
+    for stream in distinct:
+        for launched_on, ev in done:
+            if launched_on != stream:
+                stream.wait_event(ev)
+    return outs
+
+
 def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_uint64 * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
-def _launch(chunks: list) -> list:
-    """One launch on the current stream; allocates only the outputs (and a
-    contiguous copy of a chunk that is not contiguous) and never waits for
-    the card."""
-    n = len(chunks)
-    chunks = [c.contiguous() for c in chunks]
-    chunk_bytes = chunks[0].numel() * chunks[0].element_size()
-    dev = chunks[0].device
-    outs = _outputs(chunks)
-    plan = plan_gather(chunk_bytes, n,
-                       [t.data_ptr() for t in (*chunks, *outs)],
-                       _sms(dev.index or 0))
-    if plan.units == 0:  # empty chunks: nothing to copy
-        return outs
-    rc = _lib().brpc_ring_all_gather(
-        _ptrs(chunks), _ptrs(outs), n, chunk_bytes, plan.width,
-        plan.tile_bytes, plan.grid, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ring kernel launch failed: cudaError {rc} "
-                           f"({plan})")
-    _kernels.count_launch(WRAPPER)
-    return outs

@@ -3,22 +3,32 @@ brpc_tpu/parallel/fabric.py.
 
 The reference's Fabric is an XLA device mesh and `spmd` is shard_map: one
 program body runs once per device, sees only its shard, and talks to the
-other shards through `jax.lax` collectives.  The port keeps that meaning on
-one card: a mesh of N *logical peers* in one process, one thread per peer,
-every peer's tensors on the same device (the GPU unless the caller asks for
-the CPU).  `spmd` splits global tensors by their specs, runs the body once
-per peer thread, and assembles the outputs by theirs.  Inside the body,
+other shards through `jax.lax` collectives.  The port keeps that meaning in
+one process: a mesh of N peers, one thread per peer, peer `r` on its own
+device `devices[r]` (the GPU unless the caller asks for the CPU).  Peers
+may share a card (logical peers) or each hold one (the reference's mesh
+over `jax.devices()`); they may not mix device types.  `spmd` splits
+global tensors by their specs, places each peer's shard in that peer's
+device memory, runs the body once per peer thread, and assembles the
+outputs by theirs on the first peer's device.  Inside the body,
 `brpc_tpu_torch.parallel.collectives` are the `lax` collectives: each is a
 rendezvous of the peers, grouped by mesh axis.
 
-Why threads and not one process per rank: the card is one GPU; NCCL
-refuses two ranks on one GPU, gloo has no send/recv for CUDA tensors, and
-processes sharing a GPU time-slice rather than overlap.  Why not a stacked
-"leading peer dim": a handler such as `lambda i, req: torch.sum(req)` must
-sum its own shard, as under shard_map.
+Why threads and not one process per rank: it is the reference's single
+controller (one program over the whole mesh); peers that share a card
+cannot be NCCL ranks (NCCL refuses two on one GPU, gloo has no send/recv
+for CUDA tensors, processes sharing a GPU time-slice rather than overlap);
+and a single process reaches every card's memory directly, so no NCCL is
+needed.  Why not a stacked "leading peer dim": a handler such as
+`lambda i, req: torch.sum(req)` must sum its own shard, as under
+shard_map.
 
-All peers enqueue on the caller's current stream of the device, so work
-stays stream-ordered across a rendezvous without extra synchronisation.
+Streams: on CUDA each peer enqueues on a stream of its own, which the
+fabric keeps for its lifetime.  At entry every peer's stream waits on an
+event recorded on the caller's current stream of each peer device; at
+exit the caller's current streams wait on every peer's final event, before
+the outputs are assembled.  Between, a collective orders the peers'
+streams with events (`collectives._exchange`).
 """
 
 from __future__ import annotations
@@ -118,6 +128,7 @@ class _Run:
     def __init__(self, n: int, timeout_s: float):
         self.barrier = threading.Barrier(n, timeout=timeout_s)
         self.slots: list = [None] * n
+        self.reads: list = [None] * n  # CUDA: an event after each read
 
 
 _local = threading.local()
@@ -129,6 +140,9 @@ class PeerContext:
     rank: int            # flat index in the mesh (row-major)
     coords: tuple        # one coordinate per axis
     run: _Run
+    device: torch.device  # this peer's device
+    stream: object        # this peer's torch.cuda.Stream (None off CUDA)
+    events: tuple = ()    # this peer's (deposit, read) torch.cuda.Events
 
 
 def current() -> PeerContext:
@@ -139,51 +153,94 @@ def current() -> PeerContext:
     return ctx
 
 
+def _device(d) -> torch.device:
+    """`d` as a torch.device; a CUDA device without an index is the
+    current one (device 0 where torch sees no GPU, so a fabric can be
+    described, not run, without one)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device()
+                            if torch.cuda.is_available() else 0)
+    return d
+
+
 class Fabric:
-    """A mesh of logical peers on one device, plus helpers to place data and
-    run SPMD bodies (the role brpc's NamingService+SocketMap pair plays)."""
+    """A mesh of peers, one device each (shared or not), plus helpers to
+    place data and run SPMD bodies (the role brpc's NamingService+SocketMap
+    pair plays)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device, timeout_s: float = 600.0):
+                 devices, timeout_s: float = 600.0):
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {tuple(shape)} does not name "
                              f"every axis of {tuple(axis_names)}")
         if len(set(axis_names)) != len(axis_names):
             raise ValueError(f"repeated axis name in {tuple(axis_names)}")
         self.shape = dict(zip(axis_names, (int(s) for s in shape)))
-        self.device = torch.device(device)
+        count = math.prod(self.shape.values())
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices] * count
+        #: Peer r's device, by flat (row-major) rank.
+        self.devices = tuple(_device(d) for d in devices)
+        if len(self.devices) != count:
+            raise ValueError(f"mesh shape {tuple(shape)} != device count "
+                             f"{len(self.devices)}")
+        kinds = sorted({d.type for d in self.devices})
+        if len(kinds) > 1:
+            raise ValueError(f"the peers of a fabric lie on devices of one "
+                             f"type, got {kinds}")
+        #: The first peer's device: `put` places global tensors there and
+        #: `spmd` assembles its outputs there.
+        self.device = self.devices[0]
         #: Seconds a peer waits at a rendezvous before the run fails.
         self.timeout_s = timeout_s
+        self._streams: tuple = ()
+        self._events: tuple = ()
 
     # -- construction -----------------------------------------------------
     @classmethod
     def auto(cls, shape: Sequence[int] | None = None,
              axis_names: Sequence[str] = ("link",), devices=None,
              timeout_s: float = 600.0) -> "Fabric":
-        """A fabric of logical peers.  `devices` is one device (or name)
-        shared by every peer, or a sequence with one entry per peer, all
-        the same device; None is the GPU (raises without one).  With no
+        """A fabric over the given devices.  `devices` is one device (or
+        name) shared by every peer of `shape`; or a sequence with one
+        device per peer, row-major over the mesh, repeats allowed (peers
+        that share a card); or None: with no shape, one peer on each
+        visible CUDA device (the reference's `jax.devices()`), with a
+        shape, every peer on the GPU.  None raises without a GPU.  With no
         shape, every peer lies along the last axis (one ring)."""
         from brpc_tpu_torch import resolve_device  # noqa: PLC0415 - cycle
 
-        if devices is None or isinstance(devices, (str, torch.device)):
-            device = resolve_device(devices)
+        if devices is None:
+            gpu = resolve_device(None)
+            devices = (gpu if shape is not None else
+                       [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())])
+        if isinstance(devices, (str, torch.device)):
             if shape is None:
                 raise ValueError("give a mesh shape or one device per peer")
-            count = math.prod(shape)
-        else:
-            devices = [torch.device(d) for d in devices]
-            if not devices or any(d != devices[0] for d in devices):
-                raise ValueError(
-                    f"every peer of a fabric lies on one device, got "
-                    f"{sorted({str(d) for d in devices})}")
-            device, count = devices[0], len(devices)
+            devices = [devices] * math.prod(shape)
+        devices = list(devices)
         if shape is None:
-            shape = [1] * (len(axis_names) - 1) + [count]
-        if math.prod(shape) != count:
+            shape = [1] * (len(axis_names) - 1) + [len(devices)]
+        if math.prod(shape) != len(devices):
             raise ValueError(
-                f"mesh shape {tuple(shape)} != device count {count}")
-        return cls(shape, axis_names, device, timeout_s=timeout_s)
+                f"mesh shape {tuple(shape)} != device count {len(devices)}")
+        return cls(shape, axis_names, devices, timeout_s=timeout_s)
+
+    @property
+    def streams(self) -> tuple:
+        """One CUDA stream per peer, made at first use and kept for the
+        fabric's lifetime; empty off CUDA."""
+        if not self._streams and self.device.type == "cuda":
+            self._streams = tuple(torch.cuda.Stream(device=d)
+                                  for d in self.devices)
+            # Each peer's (deposit, read) events, recorded again by every
+            # collective: a collective's barriers order each record after
+            # the waits on the one before (collectives._exchange).
+            self._events = tuple((torch.cuda.Event(), torch.cuda.Event())
+                                 for _ in self.devices)
+        return self._streams
 
     # -- topology ---------------------------------------------------------
     @property
@@ -255,7 +312,9 @@ class Fabric:
         return t
 
     def shard(self, x: torch.Tensor, spec: P, rank: int) -> torch.Tensor:
-        """Peer `rank`'s shard of the global tensor `x` (a view)."""
+        """Peer `rank`'s shard of the global tensor `x`, in that peer's
+        device memory: a view where `x` lies there, else a copy (on the
+        caller's current streams, which the peers' streams wait on)."""
         if x is None:
             return None
         if len(spec) > x.dim():
@@ -273,11 +332,15 @@ class Fabric:
                     f"evenly over {count} peers of {axes}")
             blk = x.shape[dim] // count
             x = x.narrow(dim, idx * blk, blk)
+        if x.device != self.devices[rank]:
+            x = bits(x).to(self.devices[rank], non_blocking=True).view(
+                x.dtype)
         return x
 
     def assemble(self, parts: list, spec: P):
         """The global tensor whose shards are `parts` (one per peer) laid
-        out by `spec`; for P() that is peer 0's value."""
+        out by `spec`, on the first peer's device; for P() that is peer
+        0's value."""
         first = parts[0]
         if first is None or not any(spec.axes(d) for d in range(len(spec))):
             return first
@@ -325,7 +388,7 @@ class Fabric:
                 part is not None and want is not None
                 and part.dtype == want.dtype
                 and tuple(part.shape) == tuple(want.shape)
-                and torch.equal(bits(part), bits(want)))
+                and torch.equal(bits(part).to(want.device), bits(want)))
             if not same:
                 raise ValueError(
                     f"check_vma: peer {rank}'s output under out spec "
@@ -371,20 +434,28 @@ class Fabric:
         run = _Run(n, self.timeout_s)
         outs: list = [None] * n
         errors: list = [None] * n
-
-        # Every peer enqueues on the caller's current stream (a thread
-        # starts on the default one), so work stays stream-ordered across
-        # a rendezvous without extra synchronisation.
-        stream = (torch.cuda.current_stream(self.device)
-                  if self.device.type == "cuda" else None)
+        cuda = self.device.type == "cuda"
+        streams = self.streams if cuda else (None,) * n
+        # The caller's current stream of every peer device: the peers
+        # start behind what the caller enqueued there (its inputs and the
+        # shard copies), and the caller goes on behind every peer.
+        callers = ([torch.cuda.current_stream(d)
+                    for d in dict.fromkeys(self.devices)] if cuda else [])
+        entry = [s.record_event() for s in callers]
+        finals: list = [None] * n
 
         def body(rank):
-            _local.ctx = PeerContext(self, rank, self.coords(rank), run)
+            dev, stream = self.devices[rank], streams[rank]
+            _local.ctx = PeerContext(self, rank, self.coords(rank), run,
+                                     dev, stream,
+                                     self._events[rank] if cuda else ())
             try:
                 if stream is not None:
-                    with torch.cuda.device(self.device), \
-                            torch.cuda.stream(stream):
+                    with torch.cuda.device(dev), torch.cuda.stream(stream):
+                        for ev in entry:
+                            stream.wait_event(ev)
                         outs[rank] = fn(*local_args[rank])
+                        finals[rank] = stream.record_event()
                 else:
                     outs[rank] = fn(*local_args[rank])
             except BaseException as e:  # noqa: BLE001 - handed to the caller
@@ -405,6 +476,10 @@ class Fabric:
                 run.barrier.abort()
                 raise TimeoutError(
                     f"{t.name} still running after {self.timeout_s} s")
+        for s in callers:
+            for ev in finals:
+                if ev is not None:
+                    s.wait_event(ev)
         first = next((e for e in errors if e is not None and
                       not isinstance(e, threading.BrokenBarrierError)), None)
         if first is None:

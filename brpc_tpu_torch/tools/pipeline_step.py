@@ -111,6 +111,34 @@ class Fleet:
             s.stop()
 
 
+def per_iter_cost(hi_s: float, lo_s: float, hi_iters: int,
+                  lo_iters: int) -> float:
+    """Seconds per iteration of a piece: the marginal between two probe
+    lengths, so a launch's fixed cost does not count; where noise hides
+    it (a loaded host can time the longer probe faster), the longer
+    probe's mean per iteration, which bounds it from above and so errs
+    toward less compute, never toward the 2^20 cap."""
+    marginal = (hi_s - lo_s) / (hi_iters - lo_iters)
+    return marginal if marginal > 0 else hi_s / hi_iters
+
+
+def calibrate(baseline, iters: int, attempts: int = 3) -> int:
+    """Runs `baseline(iters)`, which returns the step's compute/comm ratio,
+    until the ratio is within 0.65 to 0.92, re-aiming iters at 0.8x the
+    comm it measured between runs, at most `attempts` times.  Returns the
+    iters of the LAST baseline run, on target or not: its results are the
+    golden bytes the overlapped run is held to, so that run must compute
+    with the same iters.  At the 2^20 cap it stops only when more compute
+    is wanted."""
+    for attempt in range(attempts):
+        ratio = baseline(iters)
+        if (0.65 <= ratio <= 0.92 or (ratio < 0.65 and iters >= (1 << 20))
+                or attempt == attempts - 1):
+            break
+        iters = min(1 << 20, max(8, int(iters * 0.80 / max(ratio, 1e-6))))
+    return iters
+
+
 def run_pipeline(members: int = 4, shard_kb: int = 256,
                  microbatches: int = 8, target_ms: float = 0.0,
                  link_delay_ms: int = 2, device=None,
@@ -221,8 +249,8 @@ def _run(cleanup, dev, n, shard, m_count, target_ms, link_delay_ms,
             produce(0, 0, 0, iters)
         return (time.perf_counter() - t0) / 4
 
-    per_iter_s = max(probe_s(hi_iters) - probe_s(lo_iters), 0.0) / (
-        hi_iters - lo_iters)
+    per_iter_s = per_iter_cost(probe_s(hi_iters), probe_s(lo_iters),
+                               hi_iters, lo_iters)
     pieces_per_rank = m_count * n
     # Initial guess: compute ≈ 0.55x the comm-only probe (the probe
     # overstates in-step comm because compute gaps absorb the rx tail).
@@ -243,36 +271,38 @@ def _run(cleanup, dev, n, shard, m_count, target_ms, link_delay_ms,
         compute_s[r] += time.perf_counter() - t0
 
     set_flag("trpc_coll_overlap", "false")
-    for _attempt in range(3):
-        produce(0, 0, 0, iters)  # warm at this length
+    seq = {}
 
+    def baseline(iters_now):
         # --- sequential baseline: compute m, then communicate m ---
+        nonlocal iters
+        iters = iters_now
+        produce(0, 0, 0, iters)  # warm at this length
         compute_s[:] = [0.0] * n
         comm_s[:] = [0.0] * n
         base = next_seqs()
 
-        def seq_member(r, _base=base):
+        def seq_member(r):
             for m in range(m_count):
                 for p in range(n):
                     compute_piece(r, m, p)
                 t0 = time.perf_counter()
                 fleet.groups[r].reduce_scatter(
                     grads[r][m], reds[r][m], shard_bytes=shard,
-                    run_seq=_base + 2 * m)
+                    run_seq=base + 2 * m)
                 fleet.groups[r].all_gather(
                     reds[r][m], gaths[r][m], shard_bytes=shard,
-                    run_seq=_base + 2 * m + 1)
+                    run_seq=base + 2 * m + 1)
                 comm_s[r] += time.perf_counter() - t0
 
-        seq_step_s = fleet.run_all(seq_member)
-        compute_ms = max(compute_s) * 1e3
-        comm_ms = max(comm_s) * 1e3
-        ratio = compute_ms / max(comm_ms, 1e-6)
-        if 0.65 <= ratio <= 0.92 or iters >= (1 << 20):
-            break
-        # Re-aim at 0.8x the comm actually measured in-step and redo
-        # the baseline with the rescaled kernel.
-        iters = min(1 << 20, max(8, int(iters * 0.80 / max(ratio, 1e-6))))
+        seq["step_s"] = fleet.run_all(seq_member)
+        seq["compute_ms"] = max(compute_s) * 1e3
+        seq["comm_ms"] = max(comm_s) * 1e3
+        return seq["compute_ms"] / max(seq["comm_ms"], 1e-6)
+
+    iters = calibrate(baseline, iters)
+    seq_step_s, compute_ms, comm_ms = (seq["step_s"], seq["compute_ms"],
+                                       seq["comm_ms"])
 
     seq_golden = [[gaths[r][m].tensor.clone() for m in range(m_count)]
                   for r in range(n)]

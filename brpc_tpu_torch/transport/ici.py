@@ -2,11 +2,13 @@
 brpc_tpu/transport/ici.py.
 
 The reference compiles each transfer into the XLA program (`lax.ppermute`,
-`lax.all_to_all`, ...).  The port's peers are threads of one process on one
-card, so a transfer is a collective of `brpc_tpu_torch.parallel.collectives`
-and the bytes move as device copies on the device's stream.  Every method
-runs inside a `Fabric.spmd` body; the `jit_*` methods return the spmd
-callables for host callers.
+`lax.all_to_all`, ...).  The port's peers are threads of one process, each
+on its own device and stream, so a transfer is a collective of
+`brpc_tpu_torch.parallel.collectives`: the bytes move as device copies,
+within a card or between cards (over NVLink where the cards are peers),
+behind the sender's event on the receiver's stream.  Every method runs
+inside a `Fabric.spmd` body; the `jit_*` methods return the spmd callables
+for host callers.
 """
 
 from __future__ import annotations

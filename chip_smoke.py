@@ -24,16 +24,21 @@ From the root of a checkout it:
    every peer's copy, bit-exact, at n = 2, 4, 8 (f32 arange, seeded random
    bits with NaN patterns, bf16; 30-byte bf16 chunks, uint8 chunks at odd
    byte offsets, and a (n*3, 5) bf16 global through the fabric), plus its
-   error contract and an exact launch count;
-7. drives the multi-device path over n = 8 logical peers on the card at the
-   reference's headline size (the rdma_performance 64 MiB N-to-N
-   exchange), with every launch count reset just before and read just
-   after: the N-to-N exchange, K2 on 8 MiB chunks through the fabric, the
-   full data-plane step on the 2x4 mesh, the stream echo, causal ring
-   attention in f32 and bf16 against full attention, and the port's
-   dryrun_multichip(8);
-8. times K2 at its main-path shape the way K1 is timed, beside the faster
-   of two PyTorch calls for the same gather;
+   error contract and an exact launch count; then on the 8 peer streams
+   of a fabric: against its plain version, and 10 times with every chunk
+   rewritten on its stream behind a delay just before the gather and
+   every output compared on its stream just after;
+7. drives the multi-device path over n = 8 peers on the card, each on a
+   stream of its own (it prints the peer-to-device map and the stream
+   count), at the reference's headline size (the rdma_performance 64 MiB
+   N-to-N exchange), with every launch count reset just before and read
+   just after: the N-to-N exchange, K2 on 8 MiB chunks through the fabric
+   (and 10 more seeded gathers), the full data-plane step on the 2x4 mesh,
+   the stream echo, causal ring attention in f32 and bf16 against full
+   attention, and the port's dryrun_multichip(8) 10 times;
+8. times K2 at its main-path shape the way K1 is timed, on one stream and
+   on the 8 peer streams, beside the faster of two PyTorch calls for the
+   same gather;
 9. drives the pipelined RPC plane from device tensors (`EchoPipeline`,
    `rpc_batch_echo_step` over the batch pipeline), with every launch count
    reset just before and read just after: a 64 MiB payload at depth 8 over
@@ -99,7 +104,8 @@ MAIN_BYTES = 64 * MIB
 RPC_CALLS = 8
 SEED = 0
 MASK = 0xFFFFFFFF
-PEERS = 8                  # logical peers of the multi-device path
+PEERS = 8                  # peers of the multi-device path, on one card
+REPEATS = 10               # repetitions of the checks that catch a lost wait
 NTON_LANES = 2 * MIB       # uint32 lanes per (peer, destination) row block
 RING_CHUNK = (16384, 128)  # f32 rows, cols of each peer's K2 chunk: 8 MiB
 STEP_PAYLOAD = (16384, 1024)  # f32 payload of the data-plane step: 64 MiB
@@ -579,6 +585,7 @@ def phase_ring_vs_plain(dev, log) -> int:
                                                 ring_all_gather_plain,
                                                 ring_all_gather_reference)
     from brpc_tpu_torch.parallel import Fabric
+    from brpc_tpu_torch.tools.multi_device import check_k2_streams
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err = 0
@@ -634,6 +641,27 @@ def phase_ring_vs_plain(dev, log) -> int:
     torch.cuda.synchronize()
     log("K2 contract: RuntimeError for one peer, 65 peers and a 2-D mesh, "
         "launch counter exact")
+
+    # Per-peer streams (the fabric's): each chunk made on its own stream,
+    # each output read on its own, K2 between them fenced by events.
+    ring = Fabric.auto((PEERS,), ("link",), devices=dev)
+    streams = list(ring.streams)
+    for kind, chunks in _ring_cases(PEERS, dev):
+        torch.cuda.synchronize()
+        got = ring_all_gather(chunks, streams)
+        want = ring_all_gather_plain(chunks)
+        for peer, (g, w, s) in enumerate(zip(got, want, streams)):
+            with torch.cuda.stream(s):
+                err = int((_int_bits(g) - _int_bits(w)).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"K2 on peer streams != plain, {kind} peer "
+                  f"{peer}")
+        log(f"K2 vs plain on {len(set(streams))} peer streams, "
+            f"{kind:<15}: every peer bit-exact")
+    checked = check_k2_streams([dev] * PEERS, streams, REPEATS)
+    log(f"K2 on {len(set(streams))} peer streams, {REPEATS} repetitions: "
+        f"{checked} outputs bit-exact, each chunk rewritten behind a delay "
+        "on its stream just before and read on its stream just after")
     return max_err
 
 
@@ -659,10 +687,15 @@ def phase_multi_device(dev, log) -> dict:
                                                 ring_all_gather_reference)
     from brpc_tpu_torch.parallel import Fabric
     from brpc_tpu_torch.streaming import stream_echo
+    from brpc_tpu_torch.tools.multi_device import check_k2_fabric
 
     n = PEERS
     out = {}
     ring = Fabric.auto((n,), ("link",), devices=dev)
+    out["peer_devices"] = [str(d) for d in ring.devices]
+    out["peer_streams"] = len(set(ring.streams))
+    log(f"peer-to-device map: {out['peer_devices']}; "
+        f"{out['peer_streams']} peer streams")
     rng = np.random.default_rng(SEED + 2)
 
     # N-to-N exchange: (n, 2 Mi) uint32 per peer, 64 MiB, 512 MiB in all.
@@ -693,11 +726,19 @@ def phase_multi_device(dev, log) -> dict:
     log(f"K2 via Fabric.spmd: {n} x 8 MiB -> 64 MiB gathered, bit-exact "
         "against the all_gather reference")
 
+    check_k2_fabric(ring, REPEATS)
+    log(f"K2 via Fabric.spmd on peer streams: {REPEATS} more seeded 64 MiB "
+        "gathers, each bit-exact against the reference and the input")
+
     # The full data-plane step on the 2x4 mesh, 64 MiB f32 payload.
     mesh = Fabric.auto((2, n // 2), ("dp", "link"), devices=dev)
     payload = torch.from_numpy(rng.integers(0, 4, size=STEP_PAYLOAD).astype(
         np.float32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     resp, csum = make_full_dataplane_step(mesh, "dp", "link")(payload)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
     check(torch.equal(resp, payload * 3.0), "step response != 3 x payload")
     exact = 3.0 * float(payload.double().sum())
     check(abs(float(csum[0]) - exact) <= 1e-5 * exact,
@@ -709,9 +750,14 @@ def phase_multi_device(dev, log) -> dict:
     # Stream echo: 16 chunks of 4 MiB per peer.
     chunks = rng.integers(0, 1 << 32, size=(STREAM_CHUNKS, n * STREAM_LANES),
                           dtype=np.uint32)
+    sent_t = tensor_from_numpy(chunks, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     totals, per_chunk = stream_echo(ring, "link", STREAM_CHUNKS)(
-        tensor_from_numpy(chunks, dev),
+        sent_t,
         torch.zeros(n, dtype=torch.int32, device=dev).view(torch.uint32))
+    torch.cuda.synchronize()
+    out["stream_s"] = time.perf_counter() - t0
     sent = chunks.reshape(STREAM_CHUNKS, n, STREAM_LANES).sum(
         axis=2, dtype=np.uint64) % (1 << 32)
     arrived = np.roll(sent, 1, axis=1).astype(np.uint32)  # from the left
@@ -741,8 +787,13 @@ def phase_multi_device(dev, log) -> dict:
         log(f"ring attention causal {tuple(ATTN)} {dtype}: max err {err} "
             f"(tolerance {tol})")
         del got, want
-    dryrun_multichip(n, device=dev)
-    log(f"dryrun_multichip({n}) on the card: every leg checked")
+    for _ in range(REPEATS):
+        dryrun_multichip(n, device=dev)
+    log(f"dryrun_multichip({n}) on the card, {REPEATS} times: every leg "
+        "checked")
+    log(f"multi-device times (host clock to synchronize): N-to-N "
+        f"{out['nton_s']} s, step {out['step_s']} s, stream "
+        f"{out['stream_s']} s")
     torch.cuda.synchronize()
     return out
 
@@ -753,11 +804,23 @@ def phase_ring_timing(dev, card: str, log) -> dict:
     from brpc_tpu_torch.ops.ring_kernel import (ring_all_gather,
                                                 ring_all_gather_plain)
     from brpc_tpu_torch.ops.roofline import hbm_peak_gbps
+    from brpc_tpu_torch.parallel import Fabric
 
     n = PEERS
     rows, cols = RING_CHUNK
     chunks = [torch.randn(rows, cols, device=dev) for _ in range(n)]
     stacked = torch.stack(chunks)
+    streams = list(Fabric.auto((n,), ("link",), devices=dev).streams)
+    caller = torch.cuda.current_stream(dev)
+
+    def peer_streams():  # the fabric's way: fenced in and out by events
+        entry = caller.record_event()
+        for s in streams:
+            s.wait_event(entry)
+        ring_all_gather(chunks, streams)
+        for s in streams:
+            caller.wait_event(s.record_event())
+
     chunk_bytes = rows * cols * 4
     need = (n + n * n) * chunk_bytes  # read n chunks, write n outputs
     peak = hbm_peak_gbps(torch.cuda.get_device_name(0))
@@ -773,7 +836,9 @@ def phase_ring_timing(dev, card: str, log) -> dict:
     }
     turns = [("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
              ("ms", lambda: ring_all_gather(chunks), 20),
+             ("peer_streams_ms", peer_streams, 20),
              *((name, fn, 20) for name, fn in libraries.items()),
+             ("peer_streams_ms", peer_streams, 20),
              ("ms", lambda: ring_all_gather(chunks), 20),
              ("plain_ms", lambda: ring_all_gather_plain(chunks), 10),
              *((name, fn, 20) for name, fn in reversed(libraries.items()))]
@@ -783,13 +848,15 @@ def phase_ring_timing(dev, card: str, log) -> dict:
     t = {k: sum(v) / len(v) for k, v in t.items()}
     library = min(libraries, key=t.get)
     out = {"card": card, "peers": n, "chunk_bytes": chunk_bytes,
-           "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "ms": t["ms"], "peer_streams_ms": t["peer_streams_ms"],
+           "plain_ms": t["plain_ms"],
            "library_ms": t[library], "library": library,
            "library_calls_ms": {name: t[name] for name in libraries},
            "bound_ms": bound_ms, "bound_by": "bytes", "bound_bytes": need,
            "hbm_frac": bound_ms / t["ms"] if bound_ms else None,
            "kernel_gbps": need / (t["ms"] * 1e-3) / 1e9}
-    log(f"K2 n={n} x 8 MiB [{card}]: {t['ms']} ms, bound {bound_ms} ms "
+    log(f"K2 n={n} x 8 MiB [{card}]: {t['ms']} ms on one stream, "
+        f"{t['peer_streams_ms']} ms on {n} peer streams, bound {bound_ms} ms "
         f"(bytes, (n+n^2)C); hbm_frac {out['hbm_frac']}; plain "
         f"{t['plain_ms']} ms; library {t[library]} ms ({library}); "
         f"library calls {out['library_calls_ms']}")

@@ -205,7 +205,9 @@ def test_fabric_topology_and_construction_errors():
     assert ring.shape == {"link": 3}
     with pytest.raises(ValueError, match="device count"):
         Fabric.auto((2, 2), ("dp", "link"), devices=["cpu"] * 3)
-    with pytest.raises(ValueError, match="one device"):
+    # Peers may lie on several devices of one type, never on a mix of
+    # types (a CPU peer beside a card's).
+    with pytest.raises(ValueError, match="one type"):
         Fabric.auto((2,), ("link",), devices=["cpu", "meta"])
     assert fab.sharding(None, "link").spec == P(None, "link")
     assert fab.replicated().spec == P()

@@ -175,3 +175,53 @@ def test_module_cli_on_the_cpu():
     assert out.returncode == 0, out.stderr[-2000:]
     row = json.loads(out.stdout.strip().splitlines()[-1])
     assert row["workload"] == "pipeline_overlap" and row["byte_exact"]
+
+
+@pytest.mark.parametrize("ratios,runs", [
+    ((0.8,), 1),               # on target at once
+    ((2.0, 0.7), 2),           # too much compute, then on target
+    ((0.1, 0.3, 0.5), 3),      # never on target: the last run's iters stand
+    ((3.0, 3.0, 3.0), 3),
+    ((1e-4, 0.5), 2),          # the rescale hits the 2^20 cap
+])
+def test_calibrate_returns_the_iters_of_the_last_baseline(ratios, runs):
+    """The overlapped run is held to the last baseline's bytes, so it must
+    compute with the iters that baseline ran with, on target or not."""
+    seen = []
+
+    def baseline(iters):
+        seen.append(iters)
+        return ratios[len(seen) - 1]
+
+    got = port_ps.calibrate(baseline, 1000)
+    assert len(seen) == runs
+    assert got == seen[-1]
+    assert all(8 <= i <= 1 << 20 for i in seen)
+
+
+@pytest.mark.parametrize("ratios,want", [
+    ((0.1,), [1 << 20]),                                   # more wanted
+    ((1.5, 0.8), [1 << 20, int((1 << 20) * 0.8 / 1.5)]),   # scale down
+])
+def test_calibrate_at_the_cap_stops_only_when_more_is_wanted(ratios, want):
+    seen = []
+
+    def baseline(iters):
+        seen.append(iters)
+        return ratios[len(seen) - 1]
+
+    assert port_ps.calibrate(baseline, 1 << 20) == want[-1]
+    assert seen == want
+
+
+@pytest.mark.parametrize("hi_s,lo_s,want", [
+    (0.010, 0.004, (0.010 - 0.004) / 64),   # the marginal of 64 iters
+    (0.004, 0.010, 0.004 / 128),            # noise: the longer probe's mean
+    (0.005, 0.005, 0.005 / 128),
+])
+def test_per_iter_cost_never_reaches_zero(hi_s, lo_s, want):
+    """A loaded host can time the 128-iteration probe no slower than the
+    64-iteration one; the cost then falls back to an upper bound instead
+    of 0, which would aim the first baseline at the 2^20 cap."""
+    got = port_ps.per_iter_cost(hi_s, lo_s, 128, 64)
+    assert got == pytest.approx(want) and got > 0
