@@ -80,7 +80,14 @@ From the root of a checkout it:
    (`python -m brpc_tpu_torch.tools.kv_disagg --json --seconds 2`, 12 x 8
    MiB at depth 4): its row must be verified on the card with K1 launched
    on every landed block, path rma, no failed fetch; the decode process's
-   K1 launches (counted from 0 in that process) join the kernels line.
+   K1 launches (counted from 0 in that process) join the kernels line;
+15. runs the port's headline bench (`brpc_tpu_torch.tools.bench`) in this
+   process, with every launch count reset just before and read just after:
+   the sweep child's rows at 1 KiB .. 64 MiB (K1 from 1 MiB; the batch
+   pipeline at 1 KiB, 16 and 64 MiB) and the device-RPC child's 64 MiB
+   round trip over ici/shm/tcp; every row must say gpu, K1 rows keep
+   hbm_frac <= 1.05, the round trip is verified on the card and the ici
+   payload rides sender-owned descriptors.
 
 It prints a `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`.  It exits non-zero, printing no result,
@@ -520,6 +527,34 @@ def phase_kv_disagg(card: str, log) -> dict:
         f"{row['token_p99_loaded_us']} us (ratio {row['ratio_p99']}), "
         f"{row['k1_launches']} K1 launches in the decode process")
     return row
+
+
+def phase_bench(dev, card: str, log) -> dict:
+    """The port's bench children on the card, as `python -m
+    brpc_tpu_torch.tools.bench` runs them: the sweep over the five sizes
+    and the device-RPC round trip."""
+    from brpc_tpu_torch.tools import bench
+
+    rows = []
+    for row in bench.sweep_rows(bench.SIZES, dev):
+        log(f"bench sweep [{card}]: " + json.dumps(row))
+        rows.append(row)
+    check([r["size"] for r in rows] == bench.SIZES,
+          f"bench sweep rows {[r['size'] for r in rows]}")
+    for r in rows:
+        check(r["platform"] == "gpu", f"bench {r['size']}: {r['platform']}")
+        if r["size"] >= bench.FUSED_MIN_BYTES:
+            check(r.get("hbm_frac") is not None,
+                  f"bench {r['size']}: no hbm_frac on a K1 row")
+        if r.get("hbm_frac") is not None:
+            check(r["hbm_frac"] <= 1.05,
+                  f"bench {r['size']}: hbm_frac {r['hbm_frac']} > 1.05")
+    rpc = bench.device_rpc_row(dev)
+    log(f"bench device_rpc [{card}]: " + json.dumps(rpc))
+    check(rpc["platform"] == "gpu", f"bench device_rpc: {rpc['platform']}")
+    failed = bench.device_rpc_failures(rpc)
+    check(not failed, f"bench device_rpc failed: {failed}")
+    return {"sweep": rows, "device_rpc": rpc}
 
 
 def _int_bits(t):
@@ -1467,6 +1502,15 @@ def run(out_path: str | None) -> int:
     t_disagg = time.perf_counter()
     disagg = phase_kv_disagg(card, log)
     phase_s["kv_disagg"] = time.perf_counter() - t_disagg
+
+    t_bench = time.perf_counter()
+    _kernels.reset_launches()
+    bench = phase_bench(dev, card, log)
+    bench_launches = dict(_kernels.launches)
+    check(bench_launches.get(WRAPPER, 0) > 0,
+          f"bench path launched {WRAPPER} no time")
+    log(f"bench path launches: {bench_launches}")
+    phase_s["bench"] = time.perf_counter() - t_bench
     log(f"phase seconds: {phase_s}")
     timing_line = dict(timing, rpc_gbps=main["rpc_gbps"],
                        transport=main["transport"],
@@ -1476,7 +1520,7 @@ def run(out_path: str | None) -> int:
                        ring=dict(ring_timing, **multi),
                        batch=batch, kv=kv_path,
                        pipeline=pipeline, tune_echo=tune,
-                       kv_disagg=disagg,
+                       kv_disagg=disagg, bench=bench,
                        cuda_probe=probe["attempts"], phase_s=phase_s,
                        wall_s=time.perf_counter() - t0)
     log("timing: " + json.dumps(timing_line))
@@ -1485,7 +1529,8 @@ def run(out_path: str | None) -> int:
         "source": "brpc_tpu_torch/csrc/echo_kernel.cu",
         "replaces": "brpc_tpu/ops/echo_kernel.py:26",
         "launches": (launches[WRAPPER] + batch_launches[WRAPPER]
-                     + kv_launches[WRAPPER] + disagg["k1_launches"]),
+                     + kv_launches[WRAPPER] + disagg["k1_launches"]
+                     + bench_launches[WRAPPER]),
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

@@ -110,3 +110,78 @@ def test_package_exports_fabric_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "OK"
+
+
+BENCH = PORT / "tools" / "bench.py"
+BENCH_CODE = ["bulk_code", "flood_code", "replay_bulk_code",
+              "replay_fg_code"]
+BENCH_ARGV = ["_self_cmd", "kv_disagg_cmd", "infer_serving_cmd",
+              "pipeline_overlap_cmd", "rolling_restart_cmd",
+              "traffic_replay_cmd"]
+
+
+def test_bench_module_is_covered():
+    """The port's bench is a module of the port, imported without jax
+    above and scanned; no line of it imports the reference or its tools."""
+    _assert_covered("brpc_tpu_torch.tools.bench")
+    src = BENCH.read_text()
+    assert not re.search(r"(?:from|import)\s+(?:brpc_tpu|tools)[.\s]", src)
+    assert not re.search(r"[\"']tools[\"']|bench\.py[\"']|\.jax_cache", src)
+
+
+@pytest.mark.parametrize("name", BENCH_CODE)
+def test_bench_code_string_loads_no_reference(name):
+    """Each code string bench passes to `python -c` imports the port's rpc
+    package, and its imports load no jax, brpc_tpu or tools."""
+    from brpc_tpu_torch.tools import bench
+
+    builder = getattr(bench, name)
+    code = (builder("127.0.0.1:1", 1024, 1.0) if "bulk" in name
+            else builder("127.0.0.1:1", 1.0))
+    imports = [ln for ln in code.splitlines()
+               if ln.startswith(("import ", "from "))]
+    assert any(ln.startswith("from brpc_tpu_torch.rpc import")
+               for ln in imports), imports
+    check = "\n".join(imports) + (
+        "\nimport sys\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'brpc_tpu', 'tools'))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    proc = subprocess.run([sys.executable, "-c", check], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("name", BENCH_ARGV)
+def test_bench_argv_names_only_port_modules(name):
+    """Every argv bench builds for a Python child runs a module of the
+    port, never a file."""
+    import torch
+
+    from brpc_tpu_torch.tools import bench
+
+    builder = getattr(bench, name)
+    if name == "traffic_replay_cmd":
+        argv = builder("127.0.0.1:1", "x.cap", [])
+    elif name in ("_self_cmd", "kv_disagg_cmd", "pipeline_overlap_cmd"):
+        argv = builder(torch.device("cpu"))
+    else:
+        argv = builder()
+    assert argv[:2] == [sys.executable, "-m"], argv
+    assert argv[2] in _modules() and argv[2].startswith("brpc_tpu_torch."), \
+        argv
+    assert not any(str(a).endswith(".py") for a in argv), argv
+
+
+def test_bench_spawns_only_through_its_builders():
+    """Every spawn in bench takes its argv from a builder above, the native
+    bench_echo binary or nvidia-smi; only the builders name the
+    interpreter."""
+    src = BENCH.read_text()
+    firsts = re.findall(r"subprocess\.(?:run|Popen)\(\s*([^\s,(]+)", src)
+    assert firsts and set(firsts) <= {
+        "_self_cmd", "_code_cmd", "traffic_replay_cmd", "cmd", "[exe",
+        '["nvidia-smi"'}, firsts
+    assert src.count("sys.executable") == 3
