@@ -12,18 +12,32 @@ Entry points run on the GPU unless the caller asks for the CPU
 
 from __future__ import annotations
 
-import numpy as np
-import torch
+from typing import TYPE_CHECKING
 
-from brpc_tpu_torch.parallel.fabric import Fabric  # noqa: F401
+if TYPE_CHECKING:
+    import torch
+
+    from brpc_tpu_torch.parallel.fabric import Fabric  # noqa: F401
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    # Loaded at first use, so `import brpc_tpu_torch` loads no torch and a
+    # standard-library module of the package (tools.lint_trpc) runs alone.
+    if name == "Fabric":
+        from brpc_tpu_torch.parallel.fabric import Fabric
+
+        return Fabric
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `device` when given, else the
     GPU.  Raises RuntimeError when no device is given and there is no GPU —
     never a quiet move to the CPU."""
+    import torch
+
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
@@ -36,6 +50,9 @@ def payload_from_numpy(arr, device=None) -> torch.Tensor:
     """A numpy payload as a flat uint32 tensor on `device` — the state that
     crosses from the JAX side, which takes `jnp.asarray` of the same array.
     Values convert like `astype(np.uint32)`."""
+    import numpy as np
+    import torch
+
     dev = resolve_device(device)
     host = np.ascontiguousarray(np.asarray(arr).astype(np.uint32).ravel())
     # Moved as int32 bits: uint32 copies are the narrowest torch support.
@@ -49,6 +66,9 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     a bfloat16 array (numpy has no bf16 of its own: ml_dtypes', as
     `np.asarray` of a jax bf16 array gives) converts exactly by way of
     float32, which holds every bf16 value."""
+    import numpy as np
+    import torch
+
     dev = resolve_device(device)
     host = np.ascontiguousarray(np.asarray(arr))
     # torch.tensor copies: the result never aliases `arr`, on the CPU too.

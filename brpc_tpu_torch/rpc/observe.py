@@ -309,11 +309,12 @@ def rpcz_enabled() -> bool:
 
 
 # Decoder side of the flight recorder's event-type table
-# (cpp/stat/timeline.h kEventNames).  tools/lint_trpc.py's timeline-event
-# rule keeps BOTH tables in lockstep via the `timeline-event N (name)`
-# markers: ids must be unique, consecutive from 1, and identical on the
-# C++ encoder and this decoder.  Ids are APPEND-ONLY — a recorded binary
-# dump must stay decodable by a newer reader.
+# (cpp/stat/timeline.h kEventNames).  brpc_tpu_torch/tools/lint_trpc.py's
+# timeline-event rule holds this table to the C++ encoder via the
+# `timeline-event N (name)` markers (tools/lint_trpc.py holds the
+# reference's decoder): ids must be unique, consecutive from 1, and
+# identical on both sides.  Ids are APPEND-ONLY — a recorded binary dump
+# must stay decodable by a newer reader.
 TIMELINE_EVENTS = {
     1: "fiber_create",    # timeline-event 1 (fiber_create)
     2: "fiber_ready",     # timeline-event 2 (fiber_ready)
@@ -499,9 +500,9 @@ def timeline(limit: int = 4096) -> list[TimelineEvent]:
 
 
 # Decoder side of the mergeable latency digest and the fleet publication
-# blob (cpp/stat/digest.h documents both layouts; tools/lint_trpc.py's
-# digest-wire rule keeps encoder and decoder in lockstep via these
-# markers).  Digests pool the recorder's octave-bucketed SAMPLES, so
+# blob (cpp/stat/digest.h documents both layouts;
+# brpc_tpu_torch/tools/lint_trpc.py's digest-wire rule holds this decoder
+# to that encoder via these markers).  Digests pool the recorder's octave-bucketed SAMPLES, so
 # fleet percentiles come from a rank walk over merged data — never from
 # averaging per-node p99s — with the recorder's own one-octave (2x)
 # error bound.

@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py [--out results.json]
 
-From the root of a checkout it:
+From the root of a checkout it first lints the port's native boundary
+(`python -m brpc_tpu_torch.tools.lint_trpc`: every ctypes binding of
+build/libtpurpc.so and of the CUDA kernels against the cpp/capi and csrc/
+prototypes, the wire tables against cpp/) and fails on any violation, so
+no kernel launches through a binding that disagrees with the source it is
+built from.  Then it:
 
 1. builds every kernel of the port (nvcc, sm_90a) and the native runtime
    (build/libtpurpc.so) from the sources, in parallel, and prints each
@@ -195,6 +200,15 @@ def payloads(lanes: int, dev):
            torch.full((lanes,), -1, dtype=torch.int32, device=dev).view(
                torch.uint32),
            (lanes * MASK) & MASK)
+
+
+def phase_lint() -> None:
+    """The port's bindings and wire tables against cpp/ and csrc/, before
+    anything is built or launched; any violation fails the run."""
+    from brpc_tpu_torch.tools import lint_trpc
+
+    check(lint_trpc.main() == 0,
+          "lint_trpc: the port's bindings disagree with cpp/ or csrc/")
 
 
 def phase_build(log) -> None:
@@ -1445,8 +1459,10 @@ def run(out_path: str | None) -> int:
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    phase_lint()
+    phase_s = {"lint": time.perf_counter() - t0}
     phase_build(log)
-    phase_s = {"build": time.perf_counter() - t0}
+    phase_s["build"] = time.perf_counter() - t0 - phase_s["lint"]
     t_probe = time.perf_counter()
     probe = phase_cuda_probe(log)
     phase_s["cuda_probe"] = time.perf_counter() - t_probe

@@ -71,20 +71,38 @@ def test_slice_c2_modules_are_covered(module):
 
 TOOLS = ["trace_stitch", "kv_disagg", "tune_echo", "cuda_probe",
          "make_golden_capture", "traffic_replay", "fleet_top",
-         "load_orchestrator"]
+         "load_orchestrator", "lint_trpc"]
 
 
 @pytest.mark.parametrize("name", TOOLS)
 def test_slice_d_tools_are_covered(name):
-    """Every tool of slice D is a module of the port, imported without jax
-    above and scanned; no line of it, code strings included, imports the
-    reference, and no spawn runs a file in place of the port's module."""
+    """Every tool of slices D and G is a module of the port, imported
+    without jax above and scanned; no line of it, code strings included,
+    imports the reference, and no spawn runs a file in place of the port's
+    module."""
     module = f"brpc_tpu_torch.tools.{name}"
     _assert_covered(module)
     src = (PORT / "tools" / f"{name}.py").read_text()
     assert not re.search(r"(?:from|import)\s+brpc_tpu[.\s]", src), name
     assert not re.search(r"Popen\(\s*\[\s*sys\.executable,\s*(?:os|__file__)",
                          src), name
+
+
+def test_lint_tool_loads_only_the_standard_library():
+    """The port's lint reads sources and imports none of them: importing
+    it, package included, loads no torch, numpy, jax, brpc_tpu or tools."""
+    code = (
+        "import sys\n"
+        "import brpc_tpu_torch.tools.lint_trpc\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'numpy', 'jax', 'jaxlib', 'brpc_tpu', "
+        "'tools'))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "OK"
 
 
 def _assert_covered(module):
