@@ -48,32 +48,48 @@ def resolve_device(device=None) -> torch.device:
 
 def payload_from_numpy(arr, device=None) -> torch.Tensor:
     """A numpy payload as a flat uint32 tensor on `device` — the state that
-    crosses from the JAX side, which takes `jnp.asarray` of the same array.
-    Values convert like `astype(np.uint32)`."""
+    crosses from the JAX side, which takes `jnp.asarray(arr).astype(
+    jnp.uint32)` of the same array: integer lanes wrap like
+    `astype(np.uint32)`, floating lanes saturate (ops/checksum.py)."""
     import numpy as np
     import torch
 
     dev = resolve_device(device)
-    host = np.ascontiguousarray(np.asarray(arr).astype(np.uint32).ravel())
+    host = np.asarray(arr)
+    if host.dtype.kind == "f" or host.dtype.name == "bfloat16":
+        from brpc_tpu_torch.ops.checksum import as_u32
+
+        return as_u32(tensor_from_numpy(host, "cpu")).to(dev)
+    host = np.ascontiguousarray(host.astype(np.uint32).ravel())
     # Moved as int32 bits: uint32 copies are the narrowest torch support.
     return torch.from_numpy(host.view(np.int32)).to(dev).view(torch.uint32)
+
+
+#: 64-bit numpy types and the 32-bit ones `jnp.asarray` gives for them.
+_NARROW = {"int64": "int32", "uint64": "uint32", "float64": "float32"}
 
 
 def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     """A numpy array as a tensor of the same shape and type on `device` —
     how f32, bf16, uint8 and uint32 state crosses from the JAX side, which
-    takes `jnp.asarray` of the same array.  uint32 moves as its int32 bits;
-    a bfloat16 array (numpy has no bf16 of its own: ml_dtypes', as
-    `np.asarray` of a jax bf16 array gives) converts exactly by way of
-    float32, which holds every bf16 value."""
+    takes `jnp.asarray` of the same array.  uint32 moves as its int32 bits,
+    and a bfloat16 array (numpy has no bf16 of its own: ml_dtypes',
+    as `np.asarray` of a jax bf16 array gives) as its int16 bits, NaN
+    payloads included.  64-bit arrays narrow as
+    `jnp.asarray` narrows them in 32-bit mode: int64 to int32 and uint64
+    to uint32 with wrap, float64 to float32."""
     import numpy as np
     import torch
 
     dev = resolve_device(device)
-    host = np.ascontiguousarray(np.asarray(arr))
+    host = np.asarray(arr)
+    if host.dtype.name in _NARROW:
+        with np.errstate(over="ignore"):
+            host = host.astype(_NARROW[host.dtype.name])
+    host = np.ascontiguousarray(host)
     # torch.tensor copies: the result never aliases `arr`, on the CPU too.
     if host.dtype.name == "bfloat16":
-        return torch.tensor(host.astype(np.float32), device=dev).to(
+        return torch.tensor(host.view(np.int16), device=dev).view(
             torch.bfloat16)
     if host.dtype == np.uint32:
         return torch.tensor(host.view(np.int32), device=dev).view(

@@ -68,18 +68,69 @@ def _launch(payload: torch.Tensor, copy: torch.Tensor,
     _kernels.count_launch(WRAPPER if geometry is None else GEOM_WRAPPER)
 
 
-def _check_cuda_payload(payload: torch.Tensor, what: str) -> None:
+def phase_split(in_ptr: int, out_ptr: int, n: int):
+    """How K1 moves n lanes from in_ptr to out_ptr, as its launch in
+    csrc/echo_kernel.cu decides: (head, body, tail) lane counts when the
+    two share a 16-byte phase — head scalar lanes up to in's first 16-byte
+    boundary (at most 3), body lanes as 16-byte loads and stores, tail
+    scalar lanes — or None when they do not, and every lane moves as a
+    scalar (the ragged path).  Both must be 4-byte aligned."""
+    if in_ptr % 4 or out_ptr % 4:
+        raise ValueError(f"K1 needs 4-byte-aligned lanes, got in at "
+                         f"{in_ptr:#x} and out at {out_ptr:#x}")
+    if in_ptr % 16 != out_ptr % 16:
+        return None
+    head = min(-in_ptr % 16 // 4, n)
+    body = (n - head) // 4 * 4
+    return head, body, n - head - body
+
+
+def copy_offset(in_ptr: int, alloc_ptr: int) -> int:
+    """The lane (0 to 3) of an allocation at alloc_ptr at which a copy
+    shares the 16-byte phase of a payload at in_ptr, so that K1 takes its
+    16-byte body; the allocation holds 3 lanes more than the copy."""
+    return (in_ptr - alloc_ptr) % 16 // 4
+
+
+def _as_uint32(payload: torch.Tensor) -> torch.Tensor:
+    """The payload as the uint32 lanes the reference's kernel stores:
+    other integer types convert like `astype(uint32)` (one more pass);
+    bool and floating payloads raise TypeError, as the reference's kernel
+    refuses to store them into its uint32 copy."""
+    if payload.dtype == torch.uint32:
+        return payload
+    if (payload.dtype == torch.bool or payload.is_floating_point()
+            or payload.is_complex()):
+        raise TypeError(f"the echo kernel takes integer lanes, not "
+                        f"{payload.dtype}")
+    return payload.to(torch.int32).view(torch.uint32)
+
+
+def _cuda_payload(payload: torch.Tensor, what: str) -> torch.Tensor:
+    """The payload as K1 reads it: flat, uint32, contiguous.  A strided
+    view is made contiguous on the card first (one more pass; the
+    reference's slice is a fresh array too)."""
     if payload.device.type != "cuda":
         raise RuntimeError(
             f"{what} runs on cuda or cpu tensors, not {payload.device}")
-    if payload.dtype != torch.uint32 or payload.dim() != 1:
-        raise TypeError(
-            f"{what} takes a flat uint32 payload, got {payload.dtype} "
-            f"of shape {tuple(payload.shape)}")
+    if payload.dim() != 1:
+        raise TypeError(f"{what} takes a flat payload, got shape "
+                        f"{tuple(payload.shape)}")
+    payload = _as_uint32(payload)
     if not payload.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous payload")
-    if payload.data_ptr() % 16 != 0:
-        raise ValueError(f"{what} needs a 16-byte-aligned payload")
+        payload = payload.view(torch.int32).contiguous().view(torch.uint32)
+    return payload
+
+
+def _alloc_copy(payload: torch.Tensor) -> torch.Tensor:
+    """An int32 copy buffer in the payload's 16-byte phase (see
+    copy_offset)."""
+    n = payload.numel()
+    if payload.data_ptr() % 16 == 0:
+        return torch.empty(n, dtype=torch.int32, device=payload.device)
+    buf = torch.empty(n + 3, dtype=torch.int32, device=payload.device)
+    off = copy_offset(payload.data_ptr(), buf.data_ptr())
+    return buf[off:off + n]
 
 
 def check_geometry(geometry) -> tuple:
@@ -95,25 +146,17 @@ def check_geometry(geometry) -> tuple:
 
 
 def echo_fused(payload: torch.Tensor, rows: int = _ROWS, cols: int = _COLS):
-    """payload: uint32[n] with n % (rows*cols) == 0.  Returns (copy,
-    checksum), the checksum a 0-dim uint32 tensor.  rows/cols keep the
+    """payload: uint32[n] with n % (rows*cols) == 0, any 4-byte-aligned
+    or strided view (other integer types convert like astype(uint32)).
+    Returns (copy, checksum): a uint32 copy, in the payload's 16-byte phase
+    on the card, and a 0-dim uint32 checksum.  rows/cols keep the
     reference's tile contract (the alignment the caller must meet); the
     Hopper kernel picks its own launch geometry."""
     n = payload.shape[0]
     block = rows * cols
     if n % block != 0:
         raise AssertionError(f"payload lanes {n} not a multiple of {block}")
-    if payload.device.type == "cpu":
-        return echo_reference(payload)
-    _check_cuda_payload(payload, "echo_fused")
-    # int32 storage viewed as uint32: the allocation and zero fill stay
-    # clear of gaps in torch's uint32 support.  The kernel launches on the
-    # current device, so make it the payload's.
-    with torch.cuda.device(payload.device):
-        copy = torch.empty(n, dtype=torch.int32, device=payload.device)
-        acc = torch.zeros(1, dtype=torch.int32, device=payload.device)
-        _launch(payload, copy, acc)
-    return copy.view(torch.uint32), acc.view(torch.uint32)[0]
+    return _fused(payload, None, "echo_fused")
 
 
 def echo_fused_geom(payload: torch.Tensor, geometry):
@@ -121,13 +164,20 @@ def echo_fused_geom(payload: torch.Tensor, geometry):
     the compiled set, through the geometry entry — the launch-geometry
     sweep's kernel.  Same result as echo_fused; a CPU payload takes the
     plain version."""
-    geometry = check_geometry(geometry)
+    return _fused(payload, check_geometry(geometry), "echo_fused_geom")
+
+
+def _fused(payload: torch.Tensor, geometry, what: str):
     if payload.device.type == "cpu":
-        return echo_reference(payload)
-    copy = torch.empty(payload.numel(), dtype=torch.int32,
-                       device=payload.device)
-    acc = torch.zeros(1, dtype=torch.int32, device=payload.device)
-    echo_fused_into(payload, copy, acc, geometry)
+        return echo_reference(_as_uint32(payload))
+    payload = _cuda_payload(payload, what)
+    # int32 storage viewed as uint32: the allocation and zero fill stay
+    # clear of gaps in torch's uint32 support.  The kernel launches on the
+    # current device, so make it the payload's.
+    with torch.cuda.device(payload.device):
+        copy = _alloc_copy(payload)
+        acc = torch.zeros(1, dtype=torch.int32, device=payload.device)
+        _launch(payload, copy, acc, geometry)
     return copy.view(torch.uint32), acc.view(torch.uint32)[0]
 
 
@@ -137,28 +187,43 @@ def echo_fused_into(payload: torch.Tensor, copy: torch.Tensor,
     int32 tensor of the payload's size) receives the payload and acc (one
     int32) gets the payload's sum added, mod 2^32 — acc is not zeroed.
     `geometry` None launches brpc_echo_fused, else the geometry entry.
-    Allocates, fills and synchronises nothing, so a CUDA graph can capture
-    it; a CPU payload takes the plain version."""
+    For a contiguous uint32 payload it allocates, fills and synchronises
+    nothing, so a CUDA graph can capture it; a CPU payload takes the plain
+    version."""
     if geometry is not None:
         geometry = check_geometry(geometry)
     if payload.device.type == "cpu":
-        copy.copy_(payload.view(torch.int32))
+        copy.copy_(_as_uint32(payload).view(torch.int32))
         acc.add_(sum32(payload).view(torch.int32))
         return
-    _check_cuda_payload(payload, "echo_fused_into")
+    payload = _cuda_payload(payload, "echo_fused_into")
     if (copy.dtype != torch.int32 or copy.numel() != payload.numel()
+            or not copy.is_contiguous()
             or acc.dtype != torch.int32 or acc.numel() != 1
             or copy.device != payload.device or acc.device != payload.device):
-        raise ValueError("echo_fused_into needs an int32 copy of the "
-                         "payload's size and one int32 acc on its device")
+        raise ValueError("echo_fused_into needs a contiguous int32 copy of "
+                         "the payload's size and one int32 acc on its "
+                         "device")
     with torch.cuda.device(payload.device):
         _launch(payload, copy, acc, geometry)
 
 
 def echo_reference(payload: torch.Tensor):
     """The plain torch composition the kernel fuses: a copy and sum32.
-    Used for CPU payloads and as the kernel's check on the card."""
+    Used for CPU payloads and as the kernel's check on the card.  The copy
+    has the reference's `payload + jnp.uint32(0)` type and value: small
+    unsigned lanes and bools widen to uint32, signed ones to int32, int64
+    wraps to int32, float64 rounds to float32, and -0.0 becomes +0.0."""
     if payload.dtype == torch.uint32:  # copied as int32 bits, as above
         return payload.view(torch.int32).clone().view(torch.uint32), \
             sum32(payload)
-    return payload.clone(), sum32(payload)
+    if payload.is_floating_point():
+        if payload.dtype == torch.float64:
+            payload = payload.to(torch.float32)
+        # x + 0 turns -0.0 into +0.0 and changes nothing else; torch's
+        # bf16 add would also drop a NaN's sign, so it is not used.
+        return payload.masked_fill(payload == 0, 0), sum32(payload)
+    copy = payload.to(torch.int32, copy=True)
+    if payload.dtype in (torch.bool, torch.uint8, torch.uint16):
+        copy = copy.view(torch.uint32)
+    return copy, sum32(payload)

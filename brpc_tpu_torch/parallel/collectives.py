@@ -127,24 +127,46 @@ def _fold(vals: list, op):
     return acc.view(vals[0].dtype)
 
 
-def _reduce(x, axis, op):
-    _, vals = _exchange(x, axis)
-    out = tree_map(lambda *leaves: _fold(list(leaves), op), *vals)
-    _release(axis)
-    return out
+#: Types that `lax.psum` sums in a wider one on the reference's CPU mesh:
+#: bools count as int32, and bf16 accumulates in float32 and rounds once
+#: (f16 adds in f16, peer by peer).
+_WIDE_SUM = {torch.bool: torch.int32, torch.bfloat16: torch.float32}
+
+
+def _sum(leaves: list):
+    """The group's sum of one leaf, in peer order, as `lax.psum` gives it."""
+    wide = _WIDE_SUM.get(leaves[0].dtype)
+    if wide is None:
+        return _fold(leaves, torch.add)
+    acc = _local(leaves[0]).to(wide)
+    for t in leaves[1:]:
+        acc += _local(t)
+    return acc if leaves[0].dtype == torch.bool else acc.to(leaves[0].dtype)
 
 
 def psum(x, axis):
     """Sum over the group, in peer order (integers wrap)."""
-    return _reduce(x, axis, torch.add)
+    _, vals = _exchange(x, axis)
+    out = tree_map(lambda *leaves: _sum(list(leaves)), *vals)
+    _release(axis)
+    return out
 
 
-def _extreme(x, axis, op):
+def _extreme(x, axis, op, beyond, identity: float):
     _, vals = _exchange(x, axis)
 
     def fold(*leaves):
         leaves = [_local(t) for t in leaves]
         dtype = leaves[0].dtype
+        if dtype.is_floating_point:
+            # As the reference's all-reduce computes on its CPU mesh: from
+            # the identity, a value replaces the running extreme only when
+            # strictly beyond it, so a NaN never wins and the first of +0
+            # and -0 stays.
+            acc = torch.full_like(leaves[0], identity)
+            for t in leaves:
+                acc = torch.where(beyond(t, acc), t, acc)
+            return acc
         if dtype in (torch.uint16, torch.uint32):
             # Compared as int64 values, then narrowed back to the bits.
             wide = [bits(t).to(torch.int64) & ((1 << (8 * t.element_size()))
@@ -164,11 +186,11 @@ def _extreme(x, axis, op):
 
 
 def pmax(x, axis):
-    return _extreme(x, axis, torch.maximum)
+    return _extreme(x, axis, torch.maximum, torch.gt, float("-inf"))
 
 
 def pmin(x, axis):
-    return _extreme(x, axis, torch.minimum)
+    return _extreme(x, axis, torch.minimum, torch.lt, float("inf"))
 
 
 def all_gather(x, axis_name, *, axis: int = 0, tiled: bool = False):
@@ -196,7 +218,7 @@ def psum_scatter(x, axis_name, *, scatter_dimension: int = 0,
     n = len(vals)
 
     def scatter(*leaves):
-        total = _fold(list(leaves), torch.add)
+        total = _sum(list(leaves))
         size = total.shape[scatter_dimension]
         if tiled:
             if size % n:

@@ -16,7 +16,12 @@ built from.  Then it:
 2. holds each kernel against its plain PyTorch version on the card,
    bit-exact, at the main path's sizes (1 KiB under the batch path's
    (1, 256) tile, 1, 16 and 64 MiB; arange, seeded random and
-   all-0xFFFFFFFF payloads), plus its error contract;
+   all-0xFFFFFFFF payloads), plus its error contract; then K1 on views at
+   1 and 64 MiB (byte offsets 4, 8 and 12 of a larger buffer, stride 2, a
+   copy buffer of another 16-byte phase: the ragged path) and on an int16
+   payload, each bit-exact in copy and sum and each call one counted
+   launch; and sum32/fletcher32 of edge-value f32, f16 and bf16 payloads
+   on the card against the reference's constants and the CPU;
 3. runs the single-chip echo step of `graft_entry.entry()` and at 64 MiB;
 4. drives the main path — the 64 MiB echo data plane, device → RPC stack →
    device, verified on the device — over tcp, shm and the ici staging leg
@@ -24,7 +29,8 @@ built from.  Then it:
    before and read just after;
 5. times each kernel at 64 MiB with CUDA events beside its bound, its plain
    version and PyTorch calls for the same function, and the D2H landing
-   and RPC rates;
+   and RPC rates; K1 also on the card alone on a view at byte offset 4
+   (its own phase and the ragged path) and a stride-2 view;
 6. holds the all-gather kernel (K2) against its plain version on the card,
    every peer's copy, bit-exact, at n = 2, 4, 8 (f32 arange, seeded random
    bits with NaN patterns, bf16; 30-byte bf16 chunks, uint8 chunks at odd
@@ -138,6 +144,19 @@ KV_BLOCKS = 12             # tools/kv_disagg.py DEFAULTS: 12 blocks ...
 KV_BLOCK_BYTES = 8 * MIB   # ... of 8 MiB
 PREFIX = {"tenants": 4, "sys_blocks": 4, "tail_blocks": 2,
           "block_tokens": 128, "block_kb": 256}  # its PREFIX_DEFAULTS
+VIEW_SIZES_MIB = (1, 64)   # K1 on views: sizes ...
+VIEW_OFFSETS = (4, 8, 12)  # ... and byte offsets into a larger buffer
+# Edge values of the float-checksum check: in range, fractional, negative,
+# the largest f16, the largest f32 below 2^32, 2^32 and above, +-inf, NaN.
+FLOAT_EDGES = (0.0, 2.7, -0.5, -1.0, -3.0, 7.5, 65504.0, 4294967040.0,
+               2.0 ** 32, 5e9, 1e10, float("inf"), float("-inf"),
+               float("nan"))
+# sum32 and fletcher32 of FLOAT_EDGES as each type holds them
+# (`float_edges`), as brpc_tpu.ops.checksum computes them;
+# tests/test_torch_checksum.py derives them from the JAX functions.
+FLOAT_CHECKSUMS = {"float32": (65253, (65253, 456484)),
+                   "float16": (65508, (65508, 458524)),
+                   "bfloat16": (65540, (65540, 458748))}
 
 
 class SmokeError(RuntimeError):
@@ -298,6 +317,107 @@ def phase_kernel_vs_plain(dev, log) -> int:
     return max_err
 
 
+def phase_k1_views(dev, log) -> int:
+    """K1 on payloads that are views, at VIEW_SIZES_MIB: at byte offsets
+    4, 8 and 12 of a larger buffer, with stride 2, and into a copy buffer
+    of another 16-byte phase (the ragged path), plus an int16 payload
+    (converted like astype(uint32)); each bit-exact against echo_reference
+    in copy and sum, and each call one counted K1 launch.  Returns the max
+    abs error."""
+    import torch
+
+    from brpc_tpu_torch.ops import _kernels
+    from brpc_tpu_torch.ops.echo_kernel import (WRAPPER, echo_fused,
+                                                echo_fused_into,
+                                                echo_reference, phase_split)
+
+    def launched(what, fn):
+        before = _kernels.launches[WRAPPER]
+        out = fn()
+        n = _kernels.launches[WRAPPER] - before
+        check(n == 1, f"K1 on {what}: {n} counted launches, not 1")
+        return out
+
+    def err(what, copy, csum, ref_copy, ref_sum) -> int:
+        torch.cuda.synchronize()
+        diff = (copy.view(torch.int32).to(torch.int64) & MASK) - (
+            ref_copy.view(torch.int32).to(torch.int64) & MASK)
+        e = max(int(diff.abs().max()), abs(u32(csum) - u32(ref_sum)))
+        check(e == 0, f"K1 != plain on {what} (err {e})")
+        log(f"K1 vs plain {what}: bit-exact, one launch, "
+            f"sum32={u32(csum)}")
+        return e
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(n, dtype=torch.int32, bits=32):
+        return torch.randint(-(1 << bits - 1), 1 << bits - 1, (n,),
+                             dtype=dtype, device=dev, generator=gen)
+
+    max_err = 0
+    for mib in VIEW_SIZES_MIB:
+        lanes = mib * MIB // 4
+        big = rand(lanes + 4)
+        views = [(f"{mib} MiB at byte offset {off}",
+                  big[off // 4:off // 4 + lanes].view(torch.uint32))
+                 for off in VIEW_OFFSETS]
+        views.append((f"{mib} MiB stride 2",
+                      rand(2 * lanes)[::2].view(torch.uint32)))
+        for what, p in views:
+            copy, csum = launched(what, lambda p=p: echo_fused(p))
+            if p.is_contiguous():
+                check(phase_split(p.data_ptr(), copy.data_ptr(), lanes)
+                      is not None, f"{what}: copy not in the payload's phase")
+            max_err = max(max_err, err(what, copy, csum, *echo_reference(p)))
+        # The ragged path: the caller's copy in another 16-byte phase.
+        buf = torch.empty(lanes + 4, dtype=torch.int32, device=dev)
+        for what, p, copy in (
+                (f"{mib} MiB offset 4 into a phase-0 copy", views[0][1],
+                 buf[:lanes]),
+                (f"{mib} MiB offset 0 into a phase-8 copy",
+                 big[:lanes].view(torch.uint32), buf[2:2 + lanes])):
+            check(phase_split(p.data_ptr(), copy.data_ptr(), lanes) is None,
+                  f"{what}: not the ragged path")
+            acc = torch.zeros(1, dtype=torch.int32, device=dev)
+            launched(what, lambda p=p, copy=copy, acc=acc:
+                     echo_fused_into(p, copy, acc))
+            max_err = max(max_err, err(what, copy, acc[0],
+                                       *echo_reference(p)))
+    x = rand(MIB // 4, torch.int16, 16)
+    copy, csum = launched("1 MiB int16", lambda: echo_fused(x))
+    max_err = max(max_err, err("1 MiB int16", copy, csum, *echo_reference(
+        x.to(torch.int32).view(torch.uint32))))
+    return max_err
+
+
+def float_edges(name: str, dev):
+    """FLOAT_EDGES as a flat tensor of the float type `name` on dev."""
+    import torch
+
+    return torch.tensor(FLOAT_EDGES, dtype=torch.float64).to(
+        getattr(torch, name)).to(dev)
+
+
+def phase_float_checksums(dev, log) -> None:
+    """sum32 and fletcher32 of the float edge payloads on the card: equal
+    to FLOAT_CHECKSUMS (the reference's) and to the port's CPU results."""
+    import torch
+
+    from brpc_tpu_torch.ops.checksum import fletcher32, sum32
+
+    def both(p):
+        lanes = fletcher32(p).view(torch.int32).tolist()
+        return u32(sum32(p)), tuple(v & MASK for v in lanes)
+
+    for name, want in FLOAT_CHECKSUMS.items():
+        p = float_edges(name, dev)
+        got, cpu = both(p), both(p.cpu())
+        check(got == want == cpu, f"{name} edge checksums: card {got}, "
+              f"CPU {cpu}, reference {want}")
+        log(f"float checksums {name}: sum32, fletcher32 = {got} on the "
+            f"card, the CPU and the reference")
+
+
 def phase_step(dev, log) -> None:
     import torch
 
@@ -412,9 +532,10 @@ def phase_main_path(dev, log) -> dict:
 def phase_timing(dev, card: str, log) -> dict:
     import torch
 
-    from brpc_tpu_torch.ops.echo_kernel import echo_fused, echo_reference
+    from brpc_tpu_torch.ops.echo_kernel import (echo_fused, echo_fused_into,
+                                                echo_reference, phase_split)
     from brpc_tpu_torch.ops.roofline import hbm_peak_gbps
-    from brpc_tpu_torch.tools.tune_echo import CHAIN, time_k1
+    from brpc_tpu_torch.tools.tune_echo import CHAIN, device_ms, time_k1
 
     lanes = MAIN_BYTES // 4
     p = torch.arange(lanes, dtype=torch.int32, device=dev).view(torch.uint32)
@@ -439,18 +560,45 @@ def phase_timing(dev, card: str, log) -> dict:
         check(ms is not None, "K1's longer graph was not slower")
         return ms
 
+    # K1 alone on views: the payload at byte offset 4 into a copy in its
+    # phase (3 head lanes, then the uint4 body) and into an aligned copy
+    # (the ragged path); a stride-2 payload (made contiguous first).
+    p4 = torch.arange(lanes + 1, dtype=torch.int32,
+                      device=dev)[1:].view(torch.uint32)
+    buf = torch.empty(lanes + 1, dtype=torch.int32, device=dev)
+    strided = torch.arange(2 * lanes, dtype=torch.int32,
+                           device=dev)[::2].view(torch.uint32)
+    acc = torch.zeros(1, dtype=torch.int32, device=dev)
+    views = {"phase4_ms": (p4, buf[1:]), "ragged_ms": (p4, buf[:lanes]),
+             "strided_ms": (strided, buf[:lanes])}
+    check(phase_split(p4.data_ptr(), buf[1:].data_ptr(), lanes) is not None
+          and phase_split(p4.data_ptr(), buf.data_ptr(), lanes) is None,
+          "the timed views do not take the paths they are named for")
+
+    def view_ms(key):
+        payload, copy = views[key]
+        ms = device_ms(lambda: echo_fused_into(payload, copy, acc))
+        check(ms is not None, f"K1 {key}: the longer graph was not slower")
+        return ms
+
     t = {}
     # Turns on one card; mean of the turns.  `ms` is K1 timed on the card
     # alone; `wrapper_ms` the old loop of 50 `echo_fused` calls, each
     # with its two allocations, fill and ctypes launch.
-    for key, fn in (("ms", None), ("plain_ms", lambda: echo_reference(p)),
+    for key, fn in (("ms", None), ("phase4_ms", None), ("ragged_ms", None),
+                    ("strided_ms", None),
+                    ("plain_ms", lambda: echo_reference(p)),
                     ("wrapper_ms", lambda: echo_fused(p)),
-                    ("yardstick_ms", yardstick), ("ms", None),
+                    ("yardstick_ms", yardstick), ("strided_ms", None),
+                    ("ragged_ms", None), ("phase4_ms", None), ("ms", None),
                     ("wrapper_ms", lambda: echo_fused(p)),
                     ("plain_ms", lambda: echo_reference(p)),
                     ("yardstick_ms", yardstick)):
-        t.setdefault(key, []).append(
-            host_free() if fn is None else cuda_ms(fn, iters=50))
+        if fn is not None:
+            ms = cuda_ms(fn, iters=50)
+        else:
+            ms = host_free() if key == "ms" else view_ms(key)
+        t.setdefault(key, []).append(ms)
     t = {k: sum(v) / len(v) for k, v in t.items()}
     out = {"card": card, "device_name": name, "bytes": MAIN_BYTES,
            "ms": t["ms"], "wrapper_ms": t["wrapper_ms"],
@@ -463,11 +611,21 @@ def phase_timing(dev, card: str, log) -> dict:
            "hbm_peak_gbps": peak,
            "hbm_frac": bound_ms / t["ms"] if bound_ms else None,
            "kernel_gbps": bytes_moved / (t["ms"] * 1e-3) / 1e9}
+    for key in views:
+        out[key] = t[key]
+        out[key.replace("_ms", "_frac")] = (bound_ms / t[key] if bound_ms
+                                            else None)
     log(f"K1 64 MiB [{card}]: {t['ms']} ms on the card alone "
         f"({out['ms_method']}), wrapper_ms {t['wrapper_ms']}; bound "
         f"{bound_ms} ms ({bound_by}, {peak} GB/s from ops/roofline.py), "
         f"hbm_frac {out['hbm_frac']}; plain {t['plain_ms']} ms; yardstick "
         f"{t['yardstick_ms']} ms ({out['yardstick']})")
+    log(f"K1 64 MiB views on the card alone [{card}]: phase-4 view "
+        f"{t['phase4_ms']} ms (frac {out['phase4_frac']}), ragged path "
+        f"{t['ragged_ms']} ms (frac {out['ragged_frac']}), stride-2 view "
+        f"{t['strided_ms']} ms incl. its contiguous() pass (frac "
+        f"{out['strided_frac']}); aligned {t['ms']} ms (frac "
+        f"{out['hbm_frac']})")
     return out
 
 
@@ -1467,6 +1625,8 @@ def run(out_path: str | None) -> int:
     probe = phase_cuda_probe(log)
     phase_s["cuda_probe"] = time.perf_counter() - t_probe
     max_err = phase_kernel_vs_plain(dev, log)
+    max_err = max(max_err, phase_k1_views(dev, log))
+    phase_float_checksums(dev, log)
     phase_step(dev, log)
 
     _kernels.reset_launches()

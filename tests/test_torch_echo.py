@@ -15,12 +15,13 @@ import __graft_entry__
 from brpc_tpu.models.echo import single_chip_echo_step as jax_step
 from brpc_tpu.ops.echo_kernel import echo_fused as jax_echo_fused
 from brpc_tpu.ops.echo_kernel import echo_reference as jax_echo_reference
-from brpc_tpu_torch import payload_from_numpy
+from brpc_tpu_torch import payload_from_numpy, tensor_from_numpy
 from brpc_tpu_torch.graft_entry import entry
 from brpc_tpu_torch.models.echo import single_chip_echo_step
 from brpc_tpu_torch.ops import _kernels
-from brpc_tpu_torch.ops.echo_kernel import (_BLOCK, WRAPPER, echo_fused,
-                                            echo_reference)
+from brpc_tpu_torch.ops.echo_kernel import (_BLOCK, WRAPPER, copy_offset,
+                                            echo_fused, echo_reference,
+                                            phase_split)
 from brpc_tpu_torch.ops.roofline import hbm_peak_gbps
 
 
@@ -142,3 +143,62 @@ def test_kernel_build_requires_gpu(monkeypatch):
 ])
 def test_roofline_table(name, want):
     assert hbm_peak_gbps(name) == want
+
+
+# -- floating payloads through the echo step ------------------------------
+
+@pytest.mark.parametrize("dtype,scale", [(np.float16, 1e4), (np.float32, 3e9),
+                                         (np.float32, 1.0)])
+def test_single_chip_echo_step_float_matches_jax(dtype, scale):
+    arr = (np.random.default_rng(8).standard_normal(4099) * scale).astype(
+        dtype)
+    want_resp, want_sum = jax_step(jnp.asarray(arr))
+    resp, csum = single_chip_echo_step(tensor_from_numpy(arr, "cpu"))
+    assert resp.dtype == getattr(torch, np.dtype(dtype).name)
+    np.testing.assert_array_equal(resp.numpy(), np.asarray(want_resp))
+    assert csum.dtype == torch.uint32 and int(csum) == int(want_sum)
+
+
+# -- K1 on views: the host-side split, and the CPU wrapper ----------------
+
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+def test_phase_split_and_copy_offset(offset):
+    """A payload at byte `offset` past a 16-byte boundary: K1 moves
+    (16 - offset) % 16 / 4 head lanes as scalars; a copy allocated 3 lanes
+    over, at copy_offset, shares the payload's phase; any other lane of
+    that allocation takes the ragged path."""
+    base = 0x7F0000001000
+    n = 131072
+    head = (16 - offset) % 16 // 4
+    assert phase_split(base + offset, base + 64 + offset, n) == (
+        head, (n - head) // 4 * 4, (n - head) % 4)
+    for alloc in (base, base + 256):
+        off = copy_offset(base + offset, alloc)
+        assert off == offset // 4
+        for lane in range(4):
+            split = phase_split(base + offset, alloc + 4 * lane, n)
+            assert (split is not None) == (lane == off)
+
+
+def test_phase_split_small_and_misaligned():
+    assert phase_split(4, 4, 2) == (2, 0, 0)  # fewer lanes than the head
+    assert phase_split(16, 32, 7) == (0, 4, 3)
+    with pytest.raises(ValueError):
+        phase_split(2, 2, 8)
+
+
+@pytest.mark.parametrize("view", ["offset_4", "stride_2"])
+def test_echo_fused_cpu_on_views_matches_jax(view):
+    """`x[1:1 + 131072]` and a stride-2 view: the reference slices a fresh
+    array; the port's wrapper takes the view as it is."""
+    arr = _payload("random", 2 * _BLOCK + 1)
+    x = payload_from_numpy(arr, "cpu")
+    if view == "offset_4":
+        sl, p = arr[1:1 + _BLOCK], x[1:1 + _BLOCK]
+    else:
+        sl, p = arr[:2 * _BLOCK:2], x[:2 * _BLOCK:2]
+    assert not p.is_contiguous() or p.data_ptr() % 16 == 4
+    want_copy, want_sum = jax_echo_fused(jnp.asarray(sl), interpret=True)
+    copy, csum = echo_fused(p)
+    np.testing.assert_array_equal(copy.numpy(), np.asarray(want_copy))
+    assert int(csum) == int(want_sum)

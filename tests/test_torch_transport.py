@@ -146,6 +146,21 @@ def test_stream_echo_matches_jax(rings, dtype):
     assert per.shape == (4, N)
 
 
+def test_stream_echo_float_chunks_match_jax(rings):
+    """f32 chunks: negative, fractional and out-of-range lanes saturate in
+    each chunk's sum32 as the reference's astype(uint32) does."""
+    jring, ring = rings
+    chunks = (np.random.default_rng(9).standard_normal((4, N * 16))
+              * 3e9).astype(np.float32)
+    chunks[0, :4] = [np.nan, np.inf, -np.inf, 2.7]
+    zeros = np.zeros((N,), np.uint32)
+    want_tot, want_per = jax_stream_echo(jring, "link", 4)(
+        jnp.asarray(chunks), jnp.asarray(zeros))
+    tot, per = stream_echo(ring, "link", 4)(_t(chunks), _t(zeros))
+    np.testing.assert_array_equal(_np(tot), np.asarray(want_tot))
+    np.testing.assert_array_equal(_np(per), np.asarray(want_per))
+
+
 def test_stream_echo_ones(rings):
     _, ring = rings
     tot, per = stream_echo(ring, "link", 4)(
