@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (brpc_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (brpc_tpu_torch) on one GPU (and on
+up to four, where the host shows several, for K2 across cards).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -49,7 +50,19 @@ built from.  Then it:
    attention, and the port's dryrun_multichip(8) 10 times;
 8. times K2 at its main-path shape the way K1 is timed, on one stream and
    on the 8 peer streams, beside the faster of two PyTorch calls for the
-   same gather;
+   same gather; then drives K2's fenced entry (the cross-card path,
+   `ring_all_gather_xcard`) with its launch count reset just before and
+   read just after: as n = 2 launches on two streams of this card, and
+   with two or more cards visible also one peer on each of up to four,
+   every peer bit-exact against the plain version and then 10 times with
+   every chunk rewritten behind a delay, a second stream set gathering
+   right behind the first with no synchronise between; a refused launch
+   raises and, in a child process, a launch whose peer never starts traps
+   (the next synchronise raises); then times it (gated marginal, graph
+   marginal, events) beside its bound, its plain version and one PyTorch
+   call under the same fence (`expand().contiguous()` on one card,
+   `torch.cuda.nccl.all_gather` across cards); on one card it says that
+   the cross-card check and timing need two cards or more;
 9. drives the pipelined RPC plane from device tensors (`EchoPipeline`,
    `rpc_batch_echo_step` over the batch pipeline), with every launch count
    reset just before and read just after: a 64 MiB payload at depth 8 over
@@ -1070,6 +1083,235 @@ def phase_ring_timing(dev, card: str, log) -> dict:
     return out
 
 
+# A fenced launch that waits for a peer that never starts must trap, so
+# that the next synchronise raises: launch 1 waits behind ~2 s of sleep on
+# its stream, launch 0 gives up after 0.2 s.
+_BARRIER_TIMEOUT_CHILD = r"""
+import sys
+import time
+import torch
+sys.path.insert(0, sys.argv[1])
+from brpc_tpu_torch.ops.ring_kernel import ring_all_gather_fenced
+dev = torch.device("cuda")
+streams = [torch.cuda.Stream(dev) for _ in range(2)]
+chunks = [torch.zeros(1 << 20, dtype=torch.uint8, device=dev)
+          for _ in range(2)]
+ring_all_gather_fenced(chunks, streams)  # flags made, the kernel loaded
+torch.cuda.synchronize()
+with torch.cuda.stream(streams[1]):
+    torch.cuda._sleep(1 << 32)
+ring_all_gather_fenced(chunks, streams, timeout_s=0.2)
+t0 = time.perf_counter()
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print(f"raised after {time.perf_counter() - t0:.3f} s:",
+          str(e).strip().splitlines()[0], flush=True)
+    sys.exit(0)
+print(f"no error after {time.perf_counter() - t0:.3f} s", flush=True)
+sys.exit(1)
+"""
+
+
+def _per_card_cases(devices):
+    """(kind, chunks) with chunk r on devices[r]: _ring_cases' three 8 MiB
+    kinds, and uint8 chunks of 64 KiB + 1 bytes at byte 1 of a buffer of
+    each card (the ragged path, 1-byte copies)."""
+    import numpy as np
+    import torch
+
+    n = len(devices)
+    for kind, chunks in _ring_cases(n, devices[0]):
+        yield kind, [c.to(d) for c, d in zip(chunks, devices)]
+    rng = np.random.default_rng(SEED + 30 + n)
+    size = 64 * 1024 + 1
+    yield "u8_odd_offset", [
+        torch.from_numpy(rng.integers(0, 256, size=1 + size,
+                                      dtype=np.uint8)).to(d).narrow(0, 1,
+                                                                     size)
+        for d in devices]
+
+
+def _check_fenced_cases(cases, streams, gather, log, where: str) -> int:
+    """Each case through `gather` on the peers' streams against the plain
+    version, every peer, bit-exact; returns the max abs error of the bits."""
+    import torch
+
+    from brpc_tpu_torch.ops.ring_kernel import ring_all_gather_plain
+
+    max_err = 0
+    for kind, chunks in cases:
+        torch.cuda.synchronize()
+        got = gather(chunks, streams)
+        want = ring_all_gather_plain(chunks)
+        whole = torch.cat([_int_bits(c).to(chunks[0].device)
+                           for c in chunks])
+        for peer, (g, w, s) in enumerate(zip(got, want, streams)):
+            s.wait_stream(torch.cuda.current_stream(s.device))
+            with torch.cuda.device(s.device), torch.cuda.stream(s):
+                err = int((_int_bits(g) - _int_bits(w)).abs().max())
+                same = torch.equal(_int_bits(g), whole.to(g.device))
+            max_err = max(max_err, err)
+            check(err == 0 and same,
+                  f"fenced K2 {where} != plain, {kind} peer {peer}")
+        log(f"fenced K2 {where}, {kind:<15}: every peer bit-exact")
+    torch.cuda.synchronize()
+    return max_err
+
+
+def phase_fenced(dev, card: str, log) -> dict:
+    """K2's fenced launches (brpc_ring_all_gather_xcard), the cross-card
+    path: on this card as n = 2 launches on two streams (their grids share
+    the SMs, so the barrier holds), and with two or more cards visible one
+    peer on each of up to four cards; each case bit-exact against the
+    plain version for every peer, then repeated with every chunk rewritten
+    behind a delay while a second stream set over the same cards gathers
+    right behind the first (no synchronise between: fenced gathers take
+    turns on each card); launches counted from 0 over these checks; its
+    error contract (a refused launch raises, a barrier timeout traps and
+    the next synchronise raises); timed beside its bound, its plain
+    version and one PyTorch call for the gather under the same fence
+    (NCCL across cards).  The kernels line takes the gated marginal
+    (`multi_device.gated_ms`) of the gather and of that call, the card's
+    own times; `ms` by events, host enqueue included, and the graph
+    marginal stay beside them."""
+    import torch
+
+    from brpc_tpu_torch.ops import _kernels
+    from brpc_tpu_torch.ops.ring_kernel import (FENCED_WRAPPER,
+                                                ring_all_gather,
+                                                ring_all_gather_fenced,
+                                                ring_all_gather_plain)
+    from brpc_tpu_torch.ops.roofline import (gather_bound_ms, hbm_peak_gbps,
+                                             nvlink_peak_gbps)
+    from brpc_tpu_torch.tools.multi_device import (check_k2_streams,
+                                                   fence_around, gated_ms,
+                                                   time_k2_cross_card)
+    from brpc_tpu_torch.tools.tune_echo import device_ms
+
+    name = torch.cuda.get_device_name(0)
+    cards = min(4, torch.cuda.device_count())
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    one, one_too = ([torch.cuda.Stream(dev) for _ in range(2)]
+                    for _ in range(2))
+    many, many_too = ([torch.cuda.Stream(d) for d in devices]
+                      for _ in range(2))
+    _kernels.reset_launches()
+    max_err = _check_fenced_cases(
+        [*_ring_cases(2, dev), *_ring_ragged_cases(2, dev)], one,
+        ring_all_gather_fenced, log, "n=2 on two streams of one card")
+    checked = check_k2_streams([dev] * 2, one, REPEATS,
+                               gather=ring_all_gather_fenced,
+                               also=[one_too])
+    log(f"fenced K2 on two streams of one card and on two others right "
+        f"behind, {REPEATS} repetitions: {checked} outputs bit-exact, each "
+        f"chunk rewritten behind a delay")
+    if cards > 1:
+        max_err = max(max_err, _check_fenced_cases(
+            _per_card_cases(devices), many, ring_all_gather, log,
+            f"one peer on each of {cards} cards"))
+        checked = check_k2_streams(devices, many, REPEATS, also=[many_too])
+        log(f"fenced K2 on {cards} cards over two stream sets, one right "
+            f"behind the other, {REPEATS} repetitions: {checked} outputs "
+            "bit-exact, each chunk rewritten behind a delay")
+    launches = _kernels.launches[FENCED_WRAPPER]
+    check(launches > 0 and _kernels.launches.get("ring_all_gather", 0) == 0,
+          f"fenced checks launched {dict(_kernels.launches)}")
+    log(f"fenced path launches: {dict(_kernels.launches)}")
+
+    chunks = [torch.zeros((8, 128), device=dev) for _ in range(2)]
+    for what, fn, exc in (
+            ("one stream", lambda: ring_all_gather_fenced(
+                chunks, [one[0]] * 2), ValueError),
+            ("a zero timeout", lambda: ring_all_gather_fenced(
+                chunks, one, timeout_s=0), RuntimeError)):
+        before = _kernels.launches[FENCED_WRAPPER]
+        try:
+            fn()
+        except exc:
+            pass
+        else:
+            raise SmokeError(f"fenced K2 with {what} did not raise "
+                             f"{exc.__name__}")
+        check(_kernels.launches[FENCED_WRAPPER] == before,
+              f"fenced K2 with {what} launched")
+    torch.cuda.synchronize()
+    child = subprocess.run(
+        [sys.executable, "-c", _BARRIER_TIMEOUT_CHILD,
+         os.path.dirname(os.path.abspath(__file__))],
+        capture_output=True, text=True, timeout=120)
+    check(child.returncode == 0,
+          f"barrier timeout child rc {child.returncode}: {child.stdout} "
+          f"{child.stderr[-2000:]}")
+    log(f"fenced K2 contract: ValueError for one stream, RuntimeError for "
+        f"a refused launch (nothing launched); a peer that never starts "
+        f"traps after 0.2 s and the next synchronise {child.stdout.strip()}")
+
+    rows, cols = RING_CHUNK
+    chunk_bytes = rows * cols * 4
+    hbm = hbm_peak_gbps(name)
+    pair = [torch.randn(rows, cols, device=dev) for _ in range(2)]
+    flat = torch.stack(pair).view(1, 2 * rows, cols)
+
+    def fenced_pair():
+        fence_around([dev] * 2, one,
+                     lambda: ring_all_gather_fenced(pair, one))
+
+    def library_pair():  # the same fence around the one PyTorch call
+        fence_around([dev] * 2, one,
+                     lambda: flat.expand(2, -1, -1).contiguous())
+
+    turns = [("plain_ms", lambda: ring_all_gather_plain(pair), 10),
+             ("ms", fenced_pair, 20), ("library_ms", library_pair, 20)]
+    t = {}
+    for key, fn, iters in turns + turns[::-1]:
+        t.setdefault(key, []).append(cuda_ms(fn, iters=iters))
+    out = {"one_card": {k: sum(v) / len(v) for k, v in t.items()}}
+    # The card's own time: `ms` above carries the host's enqueue of two
+    # launches and the fence; the gated marginal and the graph's do not.
+    out["one_card"]["graph_ms"] = device_ms(fenced_pair)
+    out["one_card"]["library_graph_ms"] = device_ms(library_pair)
+    out["one_card"]["gated"] = {"k2": gated_ms([dev], fenced_pair),
+                                "library": gated_ms([dev], library_pair)}
+    bound = gather_bound_ms(2, chunk_bytes, hbm) if hbm else None
+    out["one_card"].update(
+        peers=2, chunk_bytes=chunk_bytes, bound_ms=bound, bound_by="bytes",
+        library="stacked.view(1, 2*rows, cols).expand(2, -1, -1)"
+                ".contiguous(), fenced as K2")
+    gated = out["one_card"]["gated"]
+    slower = gated["k2"]["ms"] > gated["library"]["ms"]
+    log(f"fenced K2 n=2 x 8 MiB on two streams of one card [{card}]: "
+        f"{out['one_card']}; gated, the fenced entry is "
+        f"{'SLOWER' if slower else 'faster'} than the one PyTorch call "
+        f"under the same fence ({gated['k2']['ms']:.4f} against "
+        f"{gated['library']['ms']:.4f} ms)")
+    # The kernels line: gated marginals (the card's time, host enqueue
+    # hidden) for the gather and its library call alike, each inside the
+    # same fence; the graph marginals and `ms` by events stay beside them.
+    line = dict(out["one_card"], ms=gated["k2"]["ms"],
+                library_ms=gated["library"]["ms"])
+    if cards > 1:
+        big = [torch.randn(rows, cols, device=d) for d in devices]
+        cross = time_k2_cross_card(devices, many, big, hbm,
+                                   nvlink_peak_gbps(name))
+        cross["plain_ms"] = sum(cuda_ms(lambda: ring_all_gather_plain(big),
+                                        iters=10) for _ in range(2)) / 2
+        out["cross_card"] = cross
+        log(f"fenced K2 one peer on each of {cards} cards x 8 MiB [{card}]: "
+            f"{cross}")
+        line = dict(ms=cross["gated"]["k2"]["ms"],
+                    plain_ms=cross["plain_ms"], bound_ms=cross["bound_ms"],
+                    bound_by="bytes",
+                    library_ms=cross["gated"].get("nccl", {}).get("ms"))
+    else:
+        log("fenced K2 across cards: NOT checked or timed, it needs >= 2 "
+            "visible cards; this card checked the fenced launches as n = 2 "
+            "on two streams of one card only (no NVLink, no remote stores)")
+    out.update(cards=cards, launches=launches, max_abs_err=max_err,
+               line=line)
+    return out
+
+
 def observe_snapshot() -> dict:
     """The attribution vars of bench.py's batch rows (bench.py:360-393),
     read through the port's observe module; absent ones are left out."""
@@ -1606,6 +1848,7 @@ def run(out_path: str | None) -> int:
     from brpc_tpu_torch.ops import _kernels
     from brpc_tpu_torch.ops.echo_kernel import WRAPPER
     from brpc_tpu_torch.ops.lcg import WRAPPER as LCG_WRAPPER
+    from brpc_tpu_torch.ops.ring_kernel import FENCED_WRAPPER
     from brpc_tpu_torch.ops.ring_kernel import WRAPPER as RING_WRAPPER
 
     def log(msg: str) -> None:
@@ -1650,6 +1893,9 @@ def run(out_path: str | None) -> int:
     log(f"multi-device path launches: {ring_launches}")
 
     ring_timing = phase_ring_timing(dev, card, log)
+    t_fenced = time.perf_counter()
+    fenced = phase_fenced(dev, card, log)
+    phase_s["fenced"] = time.perf_counter() - t_fenced
 
     _kernels.reset_launches()
     batch = phase_batch_path(dev, card, log)
@@ -1693,7 +1939,7 @@ def run(out_path: str | None) -> int:
                        d2h_land_gbps=main["d2h_land_gbps"],
                        ici_zero_copy=main["ici_zero_copy"],
                        roundtrip_verified=main["roundtrip_verified"],
-                       ring=dict(ring_timing, **multi),
+                       ring=dict(ring_timing, **multi), fenced=fenced,
                        batch=batch, kv=kv_path,
                        pipeline=pipeline, tune_echo=tune,
                        kv_disagg=disagg, bench=bench,
@@ -1719,6 +1965,14 @@ def run(out_path: str | None) -> int:
         "bound_ms": ring_timing["bound_ms"],
         "bound_by": ring_timing["bound_by"],
         "library_ms": ring_timing["library_ms"]}, {
+        "name": FENCED_WRAPPER, "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/ring_kernel.cu",
+        "replaces": "brpc_tpu/ops/ring_kernel.py:37",
+        "launches": fenced["launches"], "max_abs_err": fenced["max_abs_err"],
+        "ms": fenced["line"]["ms"], "plain_ms": fenced["line"]["plain_ms"],
+        "bound_ms": fenced["line"]["bound_ms"],
+        "bound_by": fenced["line"]["bound_by"],
+        "library_ms": fenced["line"]["library_ms"]}, {
         "name": LCG_WRAPPER, "route": "cuda",
         "source": "brpc_tpu_torch/csrc/lcg_kernel.cu",
         "replaces": "tools/pipeline_step.py:63",
@@ -1744,11 +1998,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results here as JSON")
     args = ap.parse_args()
-    # The run drives one card; show torch only that one (the first visible),
-    # so the device count it reports is the count it used.
+    # The run drives the first card, and the fenced K2 phase one peer on
+    # each of up to four: show torch at most the first four visible cards,
+    # so the device count it reports is the count it used.  (CUDA stops at
+    # the first ordinal a host lacks, so "0,1,2,3" on a host of one card
+    # shows that one.)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    os.environ["CUDA_VISIBLE_DEVICES"] = (
-        "0" if visible is None else visible.split(",")[0])
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(
+        ("0,1,2,3" if visible is None else visible).split(",")[:4])
     try:
         return run(args.out)
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run

@@ -173,6 +173,25 @@ def test_ring_binding_reports_the_count_and_the_prototype(tree):
     assert found[0].endswith("but argtypes lists 9")
 
 
+@pytest.mark.parametrize("old,new,tail", [
+    # a short binding: the timeout slot dropped
+    ("ctypes.POINTER(ctypes.c_uint64),\n        ctypes.c_ulonglong]",
+     "ctypes.POINTER(ctypes.c_uint64)]", "but argtypes lists 13"),
+    # a narrow slot: the 64-bit timeout passed as a 32-bit int
+    ("ctypes.c_ulonglong]", "ctypes.c_int]", "ctypes.c_int (int)"),
+])
+def test_fenced_ring_binding_is_held_to_its_prototype(tree, old, new, tail):
+    """The fenced entry's binding (brpc_ring_all_gather_xcard) is read
+    where `_kernels.load(...)` loads it, like brpc_ring_all_gather's."""
+    with mutated(tree, "brpc_tpu_torch/ops/ring_kernel.py", old, new):
+        found = lint_trpc.lint(tree)
+    assert found, "the planted fault went unreported"
+    assert all("brpc_ring_all_gather_xcard" in v
+               and "brpc_tpu_torch/csrc/ring_kernel.cu:" in v
+               for v in found), found
+    assert any(tail in v for v in found), found
+
+
 def test_kernel_entry_without_a_definition_is_reported(tree):
     with mutated(tree, "brpc_tpu_torch/ops/lcg.py",
                  "_kernels.load(KERNEL).brpc_lcg",

@@ -204,7 +204,11 @@ def test_one_launch_per_source_device(devices, want):
     assert [(p.device, p.sources) for p in plans] == want
     tiles = -(-size // plans[0].tile_bytes)
     for p in plans:
-        assert p.units == len(p.sources) * tiles
+        # Several launches are fenced: a bulk unit is a (destination,
+        # tile) pair, n of them a tile; one launch keeps (source, tile).
+        fan = n if len(plans) > 1 else 1
+        assert p.fenced == (len(plans) > 1)
+        assert p.units == len(p.sources) * tiles * fan
         assert 1 <= p.grid <= p.units
 
 
@@ -221,15 +225,21 @@ def test_one_card_is_one_launch_as_plan_gather():
 @pytest.mark.parametrize("devices", [[0, 1, 2, 3], [0, 0, 1, 1], [0] * 4])
 def test_outputs_on_other_cards_take_the_same_paths(devices):
     """Bulk stores reach another card's output through its NVLink mapping,
-    so where the outputs lie does not change a launch's path."""
+    so where the outputs lie does not change a launch's path, width or
+    tile; launches on several cards are fenced, with a CTA for every
+    kStages of their (destination, tile) units, up to one per SM."""
     n, size = len(devices), 8 * MIB
     src, out = _addrs(n, size)
-    for p in plan_launches(size, devices, src, out, lambda d: 132):
+    plans = plan_launches(size, devices, src, out, lambda d: 132)
+    fenced = len(plans) > 1
+    for p in plans:
         want = plan_gather(size, n, [src[j] for j in p.sources] + out, 132,
-                           sources=p.sources, device=p.device)
+                           sources=p.sources, device=p.device, fenced=fenced)
         assert p == want
-        assert (p.path, p.width, p.tile_bytes, p.grid) == (
-            "bulk", 16, 32768, min(132, p.units))
+        assert (p.path, p.width, p.tile_bytes, p.fenced) == (
+            "bulk", 16, 32768, fenced)
+        assert p.grid == (min(132, p.units // 4) if fenced
+                          else min(132, p.units))
 
 
 @pytest.mark.parametrize("size,addr_step,want_width", [
@@ -263,6 +273,182 @@ def test_each_launch_takes_its_devices_sm_count():
     sms = {0: 132, 1: 114}
     plans = plan_launches(64 * MIB, [0, 0, 1, 1], src, out, sms.get)
     assert [p.grid for p in plans] == [132, 114]
+
+
+# -- K2's fenced launches: the cross-card plan, co-residence, flags -----------
+
+STAGES = 4  # kStages of csrc/ring_kernel.cu
+
+
+@pytest.mark.parametrize("cards,mib", [(4, 8), (4, 32), (2, 8), (8, 8)])
+def test_cross_card_plan_fills_every_ctas_ring(cards, mib):
+    """One peer on each card: every CTA of every launch gets at least
+    kStages (destination, tile) units at 8 MiB chunks, and the grid never
+    exceeds the units or the card's SMs."""
+    n, size = cards, mib * MIB
+    src, out = _addrs(n, size)
+    plans = plan_launches(size, list(range(cards)), src, out, lambda d: 132)
+    assert len(plans) == cards
+    for p in plans:
+        assert p.fenced and p.path == "bulk"
+        assert p.units == n * (size // p.tile_bytes)
+        assert 1 <= p.grid <= min(p.units, 132)
+        assert p.units // p.grid >= STAGES
+
+
+def test_cross_card_plan_of_4_x_8_mib():
+    src, out = _addrs(4, 8 * MIB)
+    plans = plan_launches(8 * MIB, [0, 1, 2, 3], src, out, lambda d: 132)
+    assert {(p.width, p.tile_bytes, p.units, p.grid) for p in plans} == {
+        (16, 32768, 1024, 132)}
+
+
+@pytest.mark.parametrize("size,addr_step,width", [
+    (30, 30, 2), (12, 12, 4), (64 * 1024 + 1, 64 * 1024 + 1, 1)])
+def test_cross_card_plan_keeps_the_ragged_path(size, addr_step, width):
+    """Chunks that bulk copies cannot take keep the ragged path across
+    cards: (source, tile) units stored to every output, as on one card."""
+    src = [(2 * j + 1) * addr_step for j in range(4)]
+    out = [4096 * (r + 1) for r in range(4)]
+    plans = plan_launches(size, [0, 1, 2, 3], src, out, lambda d: 132)
+    for p in plans:
+        one = plan_gather(size, 4, [src[j] for j in p.sources] + out, 132,
+                          sources=p.sources, device=p.device)
+        assert (p.path, p.width, p.fenced) == ("ragged", width, True)
+        assert (p.tile_bytes, p.units, p.grid) == (
+            one.tile_bytes, one.units, one.grid)
+        assert 1 <= p.grid <= p.units
+
+
+def test_launch_groups_on_one_card_split_its_sms():
+    """Fenced launches on streams of one card (one group a stream) share
+    its SMs evenly, so that every launch is resident at once."""
+    n, size = 2, 8 * MIB
+    src, out = _addrs(n, size)
+    plans = plan_launches(size, [0, 0], src, out, lambda d: 132,
+                          groups=[0, 1])
+    assert [(p.sources, p.grid, p.fenced) for p in plans] == [
+        ((0,), 66, True), ((1,), 66, True)]
+    assert all(p.units == 2 * 256 for p in plans)
+    ring_kernel.check_coresident(plans, lambda d: 132, lambda d, w: 1)
+    eight = plan_launches(size, [0] * 8, *_addrs(8, size), lambda d: 132,
+                          groups=list(range(8)))
+    assert [p.grid for p in eight] == [16] * 8
+    ring_kernel.check_coresident(eight, lambda d: 132, lambda d, w: 1)
+
+
+def test_a_group_spanning_devices_raises():
+    src, out = _addrs(2, 4096)
+    with pytest.raises(ValueError, match="spans devices"):
+        plan_launches(4096, [0, 1], src, out, lambda d: 132, groups=[0, 0])
+
+
+def test_more_launches_than_sms_raise_before_any_launch():
+    src, out = _addrs(4, 4096)
+    with pytest.raises(RuntimeError, match="cannot all be resident"):
+        plan_launches(4096, [0] * 4, src, out, lambda d: 3,
+                      groups=[0, 1, 2, 3])
+
+
+@pytest.mark.parametrize("grids,per_sm,sms,fits", [
+    ((66, 66), 1, 132, True),     # the one-card check: two bulk halves
+    ((132, 132), 1, 132, False),  # two whole-card grids on one card
+    ((67, 66), 1, 132, False),
+    ((528, 528), 8, 132, True),   # ragged: 8 CTAs an SM
+    ((529, 528), 8, 132, False),
+    ((66, 66), 0, 132, False),    # the kernel fits no SM at all
+])
+def test_coresidence_of_launches_sharing_a_card(grids, per_sm, sms, fits):
+    plans = [ring_kernel.GatherPlan(16, 32768, 4096, g, device=0,
+                                    sources=(j,), fenced=True)
+             for j, g in enumerate(grids)]
+    check = lambda: ring_kernel.check_coresident(  # noqa: E731
+        plans, lambda d: sms, lambda d, w: per_sm)
+    if fits:
+        check()
+    else:
+        with pytest.raises(RuntimeError):
+            check()
+
+
+def test_launches_alone_on_their_cards_need_no_coresidence():
+    plans = [ring_kernel.GatherPlan(16, 32768, 4096, 132, device=d,
+                                    sources=(d,), fenced=True)
+             for d in range(4)]
+    ring_kernel.check_coresident(plans, lambda d: 132, lambda d, w: 0)
+
+
+def test_one_flag_buffer_per_device_set(monkeypatch):
+    """Fenced launches keep one zeroed flag block per launch for each set
+    of launch devices and streams, allocated once; peer access is enabled
+    for a set that spans cards.  Another stream set over the same devices
+    (or the same streams in another order) gets blocks of its own, so a
+    block is only ever used from its one stream."""
+    made, peers = [], []
+
+    def zeroed(d):
+        made.append(d)
+        return torch.zeros(640, dtype=torch.uint8)
+
+    monkeypatch.setattr(ring_kernel, "_zeroed_flags", zeroed)
+    monkeypatch.setattr(ring_kernel, "enable_peers", peers.append)
+    cached = ring_kernel.barrier_flags.__wrapped__
+    monkeypatch.setattr(ring_kernel, "barrier_flags",
+                        __import__("functools").cache(cached))
+    cards = ((0, 11), (1, 12), (2, 13), (3, 14))
+    four = ring_kernel.barrier_flags(cards)
+    assert ring_kernel.barrier_flags(cards) is four
+    assert len(four) == 4 and made == [0, 1, 2, 3]
+    assert peers == [(0, 1, 2, 3)]
+    pair = ring_kernel.barrier_flags(((0, 21), (0, 22)))
+    assert len(pair) == 2 and pair[0] is not pair[1]
+    assert made == [0, 1, 2, 3, 0, 0] and peers == [(0, 1, 2, 3)]
+    assert all(int(f.sum()) == 0 for f in four + pair)
+    ring_kernel.barrier_flags(cards[::-1])  # another order: another set
+    assert len(made) == 10 and peers[-1] == (0, 1, 2, 3)
+    other = ring_kernel.barrier_flags(((0, 31), (1, 32), (2, 33), (3, 34)))
+    assert len(made) == 14 and not set(map(id, other)) & set(map(id, four))
+    ring_kernel.barrier_flags(((0, 22), (0, 21)))  # the pair swapped
+    assert len(made) == 16
+
+
+@pytest.mark.parametrize("before,launches,want_waits,want_last", [
+    # A gather repeated on its streams waits for nothing.
+    ({0: ("a",), 1: ("b",)}, [(0, "a"), (1, "b")], [],
+     {0: ("a",), 1: ("b",)}),
+    # Another stream set over the same cards: each launch waits for the
+    # previous gather's launch on its own card.
+    ({0: ("a",), 1: ("b",)}, [(0, "c"), (1, "d")], [(0, "a"), (1, "b")],
+     {0: ("c",), 1: ("d",)}),
+    # Partly shared: only the card whose stream changed waits.
+    ({0: ("a",), 1: ("b",)}, [(0, "a"), (1, "d")], [(1, "b")],
+     {0: ("a",), 1: ("d",)}),
+    # Launches sharing one card: one on a new stream waits for the first
+    # launch of the previous gather there; one on a stream of that gather
+    # (in any place) follows it on its stream already.
+    ({0: ("a", "b")}, [(0, "c"), (0, "d")], [(0, "a"), (1, "a")],
+     {0: ("c", "d")}),
+    ({0: ("a", "b")}, [(0, "b"), (0, "c")], [(1, "a")], {0: ("b", "c")}),
+    ({0: ("a", "b")}, [(0, "b"), (0, "a")], [], {0: ("b", "a")}),
+    ({0: ("a", "b")}, [(0, "a"), (0, "b")], [], {0: ("a", "b")}),
+    # A card no earlier gather used waits for nothing; others keep theirs.
+    ({0: ("a",), 3: ("z",)}, [(1, "b"), (2, "c")], [],
+     {0: ("a",), 1: ("b",), 2: ("c",), 3: ("z",)}),
+])
+def test_fenced_gathers_take_turns_on_each_card(before, launches,
+                                                want_waits, want_last):
+    """Two fenced gathers over the same cards never compete for a card:
+    a launch that does not follow the previous fenced gather there on its
+    own stream waits for that gather on its card."""
+    last = dict(before)
+    assert ring_kernel.fenced_turns(last, launches) == want_waits
+    assert last == want_last
+
+
+def test_fenced_gather_rejects_cpu_chunks():
+    chunks = [torch.zeros(2, 4) for _ in range(2)]
+    with pytest.raises(RuntimeError, match="cuda tensors only"):
+        ring_kernel.ring_all_gather_fenced(chunks, [None, None])
 
 
 @pytest.mark.parametrize("rc,match", [

@@ -137,6 +137,33 @@ def test_plan_grid_never_exceeds_the_units(chunk_bytes, sms):
         assert 1 <= plan.grid <= min(plan.units, 8 * sms)
 
 
+@pytest.mark.parametrize("chunk_bytes", [4096, 8 << 20, 32 << 20])
+@pytest.mark.parametrize("n,sms", [(2, 132), (4, 132), (8, 132), (2, 66)])
+def test_fenced_bulk_plan_has_a_unit_per_destination(chunk_bytes, n, sms):
+    """A fenced bulk launch of one source stores each tile to one output a
+    unit: n units a tile, a CTA for at least kStages of them where there
+    are enough (one CTA at the least), never more CTAs than SMs."""
+    plan = plan_gather(chunk_bytes, n, [0], sms, sources=(0,), fenced=True)
+    tiles = -(-chunk_bytes // plan.tile_bytes)
+    assert (plan.path, plan.fenced) == ("bulk", True)
+    assert plan.units == n * tiles
+    assert 1 <= plan.grid <= min(plan.units, sms)
+    if plan.units >= 4 * sms:
+        assert plan.grid == sms
+    assert plan.grid == 1 or plan.units // plan.grid >= 4
+
+
+@pytest.mark.parametrize("chunk_bytes,addrs", [
+    (30, [2, 32]), (3 * MIB + 2, [0, 3 * MIB + 2]), (16, [1, 17])])
+def test_fenced_ragged_plan_is_the_ragged_plan(chunk_bytes, addrs):
+    one = plan_gather(chunk_bytes, 2, addrs, 132, sources=(0,))
+    fenced = plan_gather(chunk_bytes, 2, addrs, 132, sources=(0,),
+                         fenced=True)
+    assert fenced.path == "ragged" and fenced.fenced
+    assert (fenced.width, fenced.tile_bytes, fenced.units, fenced.grid) == (
+        one.width, one.tile_bytes, one.units, one.grid)
+
+
 def test_plan_rejects_more_than_64_peers():
     with pytest.raises(RuntimeError, match="2 to 64 peers"):
         plan_gather(4096, 65, [0], 132)
