@@ -1,0 +1,12 @@
+"""device_idle_pct.gather: the share of the profiled slice in which no kernel,
+copy or memset ran on the card, averaged over the cards of the run, in
+percent."""
+
+def read(run):
+    t = run.trace
+    if t is None:
+        return None
+    busy = t.busy_s()
+    if busy is None or t.seconds <= 0:
+        return None
+    return 100.0 * (1.0 - busy / t.seconds)
