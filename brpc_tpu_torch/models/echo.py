@@ -26,6 +26,7 @@ from brpc_tpu_torch.parallel.fabric import Fabric, P
 from brpc_tpu_torch.rpc import zerocopy
 from brpc_tpu_torch.rpc.batch import _landing_bytes
 from brpc_tpu_torch.rpc.client import make_rpc_error
+from brpc_tpu_torch.rpc.observe import span
 from brpc_tpu_torch.transport.ici import IciTransport, _ring_perm
 
 
@@ -85,7 +86,13 @@ class EchoPipeline:
     raises its typed error once the rest of the drained completions are
     accounted for; its landing buffer is retired, never reused, since a
     late server-side put may still reach an RmaBuffer.  `rows`/`cols` are
-    echo_fused's tile contract (a 1 KiB payload passes rows=1, cols=256)."""
+    echo_fused's tile contract (a 1 KiB payload passes rows=1, cols=256).
+
+    Under a torch profiler each step is a span (`observe.span`):
+    `trpc.echo.submit` holds `trpc.echo.reuse_wait` (a buffer's earlier
+    H2D copy) and the batch's `trpc.batch.stage`/`.issue`; `trpc.echo.poll`
+    holds `trpc.batch.wait` and, per completion, `trpc.echo.land` (the H2D
+    copy and its event) and `trpc.echo.check` (K1 on the landed copy)."""
 
     def __init__(self, channel, payload: torch.Tensor, resp_bufs,
                  method: str = "Echo.Echo", timeout_ms: int = 0,
@@ -111,8 +118,9 @@ class EchoPipeline:
 
     def _take(self):
         buf, copied = self._free.pop()
-        if copied is not None:
-            copied.synchronize()  # the H2D copy that read it is done
+        with span("trpc.echo.reuse_wait"):
+            if copied is not None:
+                copied.synchronize()  # the H2D copy that read it is done
         return buf
 
     def submit(self, k: int) -> None:
@@ -120,16 +128,24 @@ class EchoPipeline:
         if k > len(self._free):
             raise ValueError(f"{k} calls but {len(self._free)} free "
                              "landing buffers")
-        bufs = [self._take() for _ in range(k)]
-        tokens = self._pipe.submit(self._method, [self.copy] * k,
-                                   resp_bufs=bufs,
-                                   timeout_ms=self._timeout_ms)
-        self._inflight.update(zip(tokens, bufs))
+        with span("trpc.echo.submit"):
+            bufs = [self._take() for _ in range(k)]
+            tokens = self._pipe.submit(self._method, [self.copy] * k,
+                                       resp_bufs=bufs,
+                                       timeout_ms=self._timeout_ms)
+            self._inflight.update(zip(tokens, bufs))
 
     def poll(self, max_n: int = 64, timeout_ms: int = -1):
         """[(echoed uint32 tensor on the payload's device, its K1 checksum
         as a 0-dim uint32 tensor)] for the completions drained.  Raises the
         first failure among them after handling all of them."""
+        with span("trpc.echo.poll"):
+            out, error = self._poll(max_n, timeout_ms)
+        if error is not None:
+            raise error
+        return out
+
+    def _poll(self, max_n: int, timeout_ms: int):
         out, error = [], None
         for c in self._pipe.poll(max_n=max_n, timeout_ms=timeout_ms):
             buf = self._inflight.pop(c.token)
@@ -142,20 +158,20 @@ class EchoPipeline:
                     f"echo returned {c.resp_len} bytes for {self.nbytes} "
                     f"(in caller buffer: {c.in_caller_buffer})")
                 continue
-            landed = torch.from_numpy(
-                _landing_bytes(buf)[:self.nbytes]).view(torch.int32)
-            back = landed.to(self.device, non_blocking=True, copy=True)
-            copied = None
-            if back.is_cuda:
-                copied = torch.cuda.Event()
-                copied.record()
-            self._free.append((buf, copied))
+            with span("trpc.echo.land"):
+                landed = torch.from_numpy(
+                    _landing_bytes(buf)[:self.nbytes]).view(torch.int32)
+                back = landed.to(self.device, non_blocking=True, copy=True)
+                copied = None
+                if back.is_cuda:
+                    copied = torch.cuda.Event()
+                    copied.record()
+                self._free.append((buf, copied))
             back = back.view(torch.uint32)
-            _, got = echo_fused(back, *self._tile)
+            with span("trpc.echo.check"):
+                _, got = echo_fused(back, *self._tile)
             out.append((back, got))
-        if error is not None:
-            raise error
-        return out
+        return out, error
 
     def close(self) -> None:
         self._pipe.close()

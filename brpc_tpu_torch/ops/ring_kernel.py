@@ -39,6 +39,7 @@ import torch
 from brpc_tpu_torch.ops import _kernels
 from brpc_tpu_torch.parallel import collectives as coll
 from brpc_tpu_torch.parallel.fabric import Fabric, P
+from brpc_tpu_torch.rpc.observe import span
 
 KERNEL = "ring_kernel"      # csrc/<KERNEL>.cu
 WRAPPER = "ring_all_gather"  # its name in _kernels.launches
@@ -114,7 +115,10 @@ def ring_all_gather(chunks: list, streams=None) -> list:
     stream of each peer, on which its chunk was made and its output will
     be read; by default each chunk's device's current stream.  Fenced
     gathers (across cards) on other streams of the same cards take turns
-    there (`fenced_turns`)."""
+    there (`fenced_turns`).  Under a torch profiler the CUDA path is the
+    span `trpc.k2.gather`, holding `trpc.k2.alloc` (outputs), `.plan`
+    (plans, barrier flags), `.order` (event waits; the fenced lock's
+    turns) and `.launch` (the C call) (`observe.span`)."""
     _check(chunks)
     kind = chunks[0].device.type
     if kind == "cpu":
@@ -122,11 +126,13 @@ def ring_all_gather(chunks: list, streams=None) -> list:
     if kind != "cuda":
         raise RuntimeError(
             f"ring_all_gather runs on cuda or cpu tensors, not {kind}")
-    if streams is None:
-        streams = [torch.cuda.current_stream(c.device) for c in chunks]
-    if len(streams) != len(chunks):
-        raise ValueError(f"{len(streams)} streams for {len(chunks)} chunks")
-    return _launch(chunks, list(streams))
+    with span("trpc.k2.gather"):
+        if streams is None:
+            streams = [torch.cuda.current_stream(c.device) for c in chunks]
+        if len(streams) != len(chunks):
+            raise ValueError(
+                f"{len(streams)} streams for {len(chunks)} chunks")
+        return _launch(chunks, list(streams))
 
 
 def ring_all_gather_fenced(chunks: list, streams: list, *,
@@ -459,54 +465,60 @@ def _launch(chunks: list, streams: list, *, groups=None,
     peer's stream, and never waits for the card."""
     n = len(chunks)
     devs = [c.device.index for c in chunks]
-    outs, srcs = _on_streams(chunks, streams, _out_shape(chunks))
+    with span("trpc.k2.alloc"):
+        outs, srcs = _on_streams(chunks, streams, _out_shape(chunks))
     chunk_bytes = srcs[0].numel() * srcs[0].element_size()
-    # A plan reads addresses only modulo the bulk width (16): plans are
-    # kept by that, so a repeated gather plans once.
-    plans = _plans(chunk_bytes, tuple(devs),
-                   tuple(t.data_ptr() % _BULK_WIDTH for t in srcs),
-                   tuple(t.data_ptr() % _BULK_WIDTH for t in outs),
-                   None if groups is None else tuple(groups))
-    if plans[0].units == 0:  # empty chunks: nothing to copy
-        return outs
-    fenced = len(plans) > 1
-    launch_streams = [streams[p.sources[0]] for p in plans]
-    if fenced:
-        flags = barrier_flags(tuple(
-            (p.device, s.cuda_stream) for p, s in zip(plans, launch_streams)))
+    with span("trpc.k2.plan"):
+        # A plan reads addresses only modulo the bulk width (16): plans
+        # are kept by that, so a repeated gather plans once.
+        plans = _plans(chunk_bytes, tuple(devs),
+                       tuple(t.data_ptr() % _BULK_WIDTH for t in srcs),
+                       tuple(t.data_ptr() % _BULK_WIDTH for t in outs),
+                       None if groups is None else tuple(groups))
+        if plans[0].units == 0:  # empty chunks: nothing to copy
+            return outs
+        fenced = len(plans) > 1
+        launch_streams = [streams[p.sources[0]] for p in plans]
+        if fenced:
+            flags = barrier_flags(tuple(
+                (p.device, s.cuda_stream)
+                for p, s in zip(plans, launch_streams)))
+            order, *arrays = _fenced_args(plans)
+            devices, slots, counts, widths, tiles, grids = arrays
     # Peers whose streams each launch orders with events: the group's
     # (several peers of one card), or every peer for a lone launch.
     others = [list(dict.fromkeys(streams[j]
                                  for j in (p.sources if fenced else range(n))
                                  if streams[j] != s))
               for p, s in zip(plans, launch_streams)]
-    for s, group in zip(launch_streams, others):
-        for other in group:
-            s.wait_event(other.record_event())
+    with span("trpc.k2.order"):
+        for s, group in zip(launch_streams, others):
+            for other in group:
+                s.wait_event(other.record_event())
     out_ptrs = _ptrs(outs)
     if fenced:
-        order, *arrays = _fenced_args(plans)
-        devices, slots, counts, widths, tiles, grids = arrays
         with _fenced_lock:
-            if not torch.cuda.is_current_stream_capturing():
-                ends = {}
-                for k, other in fenced_turns(
-                        _last_fenced,
-                        [(p.device, s) for p, s in zip(plans,
-                                                       launch_streams)]):
-                    if other not in ends:
-                        ends[other] = other.record_event()
-                    launch_streams[k].wait_event(ends[other])
-            rc = _lib().brpc_ring_all_gather_xcard(
-                len(plans), devices,
-                (ctypes.c_uint64 * len(plans))(
-                    *(s.cuda_stream for s in launch_streams)),
-                _ptrs([srcs[j] for j in order]), slots, counts, out_ptrs, n,
-                chunk_bytes, widths, tiles, grids, _ptrs(flags),
-                int(timeout_s * 1e9))
+            with span("trpc.k2.order"):
+                if not torch.cuda.is_current_stream_capturing():
+                    ends = {}
+                    for k, other in fenced_turns(
+                            _last_fenced,
+                            [(p.device, s)
+                             for p, s in zip(plans, launch_streams)]):
+                        if other not in ends:
+                            ends[other] = other.record_event()
+                        launch_streams[k].wait_event(ends[other])
+            with span("trpc.k2.launch"):
+                rc = _lib().brpc_ring_all_gather_xcard(
+                    len(plans), devices,
+                    (ctypes.c_uint64 * len(plans))(
+                        *(s.cuda_stream for s in launch_streams)),
+                    _ptrs([srcs[j] for j in order]), slots, counts, out_ptrs,
+                    n, chunk_bytes, widths, tiles, grids, _ptrs(flags),
+                    int(timeout_s * 1e9))
     else:
         (plan,) = plans
-        with torch.cuda.device(plan.device):
+        with span("trpc.k2.launch"), torch.cuda.device(plan.device):
             rc = _lib().brpc_ring_all_gather(
                 _ptrs(srcs), (ctypes.c_int * n)(*plan.sources), n, out_ptrs,
                 n, chunk_bytes, plan.width, plan.tile_bytes, plan.grid,

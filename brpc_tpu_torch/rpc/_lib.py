@@ -142,6 +142,24 @@ def ensure_built(all_targets: bool = False) -> None:
         _ensure_built_locked(all_targets)
 
 
+def _drop_foreign_cache() -> None:
+    """Removes build/CMakeCache.txt and build/CMakeFiles/ when the cache
+    was made for another source or build directory (a copy of a tree
+    that carried its build/ along): cmake refuses to configure over it."""
+    cache = _BUILD / "CMakeCache.txt"
+    if not cache.exists():
+        return
+    want = {"CMAKE_CACHEFILE_DIR": _BUILD.resolve(),
+            "CMAKE_HOME_DIRECTORY": (_REPO / "cpp").resolve()}
+    for line in cache.read_text(errors="replace").splitlines():
+        key, _, value = line.partition("=")
+        key = key.split(":")[0]
+        if key in want and pathlib.Path(value).resolve() != want[key]:
+            cache.unlink()
+            shutil.rmtree(_BUILD / "CMakeFiles", ignore_errors=True)
+            return
+
+
 def _ensure_built_locked(all_targets: bool = False) -> None:
     stale = (not _LIB_PATH.exists()
              or _LIB_PATH.stat().st_mtime < _newest_source_mtime())
@@ -151,6 +169,7 @@ def _ensure_built_locked(all_targets: bool = False) -> None:
         return
     if not stale and not all_targets:
         return
+    _drop_foreign_cache()
     _run(["cmake", "-S", str(_REPO / "cpp"), "-B", str(_BUILD)])
     cmd = ["cmake", "--build", str(_BUILD), "-j", str(os.cpu_count() or 2)]
     if not all_targets:

@@ -42,13 +42,40 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import time
 
 import numpy as np
 import torch
 
 from brpc_tpu_torch.rpc import zerocopy as _zc
 from brpc_tpu_torch.rpc._lib import load_library
+from brpc_tpu_torch.rpc.observe import Gauge, span
 from brpc_tpu_torch.rpc.rma import RmaBuffer
+
+
+#: Process-wide counters of the calls polls have drained, in /vars: how
+#: many, and the sum of each one's time from the host's submit (a clock
+#: reading just before the native crossing) to the return of the poll that
+#: drained it, in microseconds.  Over a window, held / drained less the
+#: native recorder's `rpc_client_batch` mean (issue to completion) is the
+#: time the host holds a call beyond the wire: the native submit crossing
+#: up to its issue, the response's landing copy, the completion ring and
+#: the poll's return.
+DRAINED = "rpc_client_batch_drained"
+HELD_US = "rpc_client_batch_held_us"
+_queue_lock = threading.Lock()
+_queue = None
+
+
+def _queue_vars():
+    global _queue
+    with _queue_lock:
+        if _queue is None:
+            _queue = (
+                Gauge(DRAINED, "batch-pipeline completions drained by polls"),
+                Gauge(HELD_US, "sum over drained batch calls of the host's "
+                      "submit to the poll that drained it, in microseconds"))
+    return _queue
 
 
 def pinned_requests() -> int:
@@ -210,7 +237,14 @@ class Batch:
 
     The batch holds a reference to its channel; buffered completions
     remain drainable after `channel.close()` as long as nothing was in
-    flight at close time."""
+    flight at close time.
+
+    Under a torch profiler (`observe.span`): `trpc.batch.stage` (the
+    requests' views and pins, with a CUDA request's D2H into pinned
+    staging), `trpc.batch.issue` (the native submit) and `trpc.batch.wait`
+    (the native poll, GIL released).  Each poll that drains adds to the
+    process-wide `rpc_client_batch_drained` and `_held_us` (one clock
+    reading a submit and one a poll)."""
 
     def __init__(self, channel, is_cluster: bool | None = None):
         self._lib = load_library()
@@ -224,6 +258,8 @@ class Batch:
         if not self._ptr:
             raise ValueError("batch over a closed channel")
         self._resp_pins: dict[int, object] = {}
+        self._issued: dict[int, int] = {}  # token -> submit, monotonic ns
+        self._queue = _queue_vars()
         # Serializes submit/cancel/introspection against close, and
         # counts pollers so close can wait for them to drain out of the
         # native poll before destroying the handle.
@@ -271,15 +307,16 @@ class Batch:
         pins = []
         staged: dict[int, tuple] = {}
         try:
-            for i, r in enumerate(requests):
-                flat, owner = _request_bytes(r, staged)
-                if flat.nbytes == 0:
-                    continue
-                req_ptrs[i] = flat.ctypes.data
-                req_lens[i] = flat.nbytes
-                tok = _zc.pin(flat, owner, r)
-                pin_ctxs[i] = tok
-                pins.append(tok)
+            with span("trpc.batch.stage"):
+                for i, r in enumerate(requests):
+                    flat, owner = _request_bytes(r, staged)
+                    if flat.nbytes == 0:
+                        continue
+                    req_ptrs[i] = flat.ctypes.data
+                    req_lens[i] = flat.nbytes
+                    tok = _zc.pin(flat, owner, r)
+                    pin_ctxs[i] = tok
+                    pins.append(tok)
         except Exception:
             for tok in pins:  # a bad request mid-loop must not leak pins
                 _zc.unpin(tok)
@@ -295,15 +332,19 @@ class Batch:
                 for tok in pins:
                     _zc.unpin(tok)
                 raise ValueError("batch is closed")
-            got = self._lib.trpc_batch_submit(
-                self._ptr, method.encode(), req_ptrs, req_lens, rb, rc, n,
-                timeout_ms, ctypes.cast(_zc.release_cb, ctypes.c_void_p),
-                pin_ctxs, tokens)
+            issued = time.monotonic_ns()
+            with span("trpc.batch.issue"):
+                got = self._lib.trpc_batch_submit(
+                    self._ptr, method.encode(), req_ptrs, req_lens, rb, rc,
+                    n, timeout_ms,
+                    ctypes.cast(_zc.release_cb, ctypes.c_void_p), pin_ctxs,
+                    tokens)
             if got != n:
                 for tok in pins:  # nothing was issued; undo the pins
                     _zc.unpin(tok)
                 raise RuntimeError("batch rejected the submit (closing?)")
             out = list(tokens)
+            self._issued.update(dict.fromkeys(out, issued))
             landed = (t for i, t in enumerate(out)
                       if resp_bufs is not None and resp_bufs[i] is not None)
             for t, pin in zip(landed, resp_views):
@@ -325,16 +366,24 @@ class Batch:
             # The native handle stays valid for the whole call: close()
             # quiesces (which wakes parked pollers out of the wait) and
             # only destroys after _active_polls drains to zero.
-            got = self._lib.trpc_batch_poll(ptr, arr, max_n, timeout_ms)
+            with span("trpc.batch.wait"):
+                got = self._lib.trpc_batch_poll(ptr, arr, max_n, timeout_ms)
         finally:
             with self._lock:
                 self._active_polls -= 1
                 self._cond.notify_all()
         out = []
         if got:
+            now = time.monotonic_ns()
+            held = 0
             with self._lock:  # one locked pass, not one lock per record
                 for i in range(got):
-                    self._resp_pins.pop(arr[i].token, None)
+                    tok = arr[i].token
+                    self._resp_pins.pop(tok, None)
+                    held += now - self._issued.pop(tok, now)
+            drained, held_us = self._queue
+            drained.add(got)
+            held_us.add(held // 1000)
         for i in range(got):
             c = arr[i]
             data = None
@@ -403,6 +452,7 @@ class Batch:
             # what keeps a caller-dropped landing buffer alive, and an
             # in-flight completion memcpys into it natively.
             self._resp_pins.clear()
+            self._issued.clear()
         self._channel = None
 
     def __del__(self):

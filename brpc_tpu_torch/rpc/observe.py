@@ -29,15 +29,25 @@ Span collection for the AUTOMATIC per-RPC spans is gated by the
 reloadable `rpcz_enabled` flag (`enable_rpcz()`); explicit `trace()`
 spans always record.  When rpcz is off the plane costs nothing on the
 hot path (guarded by test_perf_smoke).
+
+A fourth, port-only piece puts the host's own steps on the device
+trace's clock: `span(name)` is a `torch.profiler` range (a Kineto
+`user_annotation`, on the same clock as the card's kernels and copies)
+while a profiler records, and a shared no-op otherwise.  The program's
+spans are named `trpc.<layer>.<step>`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
 import struct
 from dataclasses import dataclass, field
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from brpc_tpu_torch.rpc._lib import load_library
 from brpc_tpu_torch.rpc.flags import get_flag, set_flag
@@ -53,6 +63,28 @@ def _dump_with_retry(call, initial: int = 1 << 16) -> bytes:
         if need < size:
             return out.raw[:need]
         size = need + 1
+
+
+# --------------------------------------------------------- host spans ----
+
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def profiling() -> bool:
+        """Whether a torch profiler is recording now (a module flag the
+        profiler sets and clears; reading it calls nothing)."""
+        return _autograd_profiler._is_profiler_enabled
+else:
+    profiling = torch._C._autograd._profiler_enabled
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function(name)` range while a torch profiler records,
+    else one shared no-op context: with no profiler, a span site costs one
+    flag test and calls nothing in torch.  Nest spans on one thread."""
+    if not profiling():
+        return _NO_SPAN
+    return _autograd_profiler.record_function(name)
 
 
 # ---------------------------------------------------------------- vars ----

@@ -34,6 +34,13 @@ alignment — a child RPC physically runs within its parent's window),
 averaged over all cross-node links and propagated breadth-first from an
 anchor node, so chains (client → A → B) come out consistent.
 
+A `torch.profiler` Chrome trace of a node (port only; `--profile`) joins
+on the same clock: its events sit at `ts` + `baseTimeNanoseconds` / 1000
+µs on the wall clock (the profiler's clock is the wall clock), plus that
+node's offset, so the port's host spans (`trpc.*`) and the card's kernels
+and copies line up with the node's rpcz spans and timeline.  Each of the
+profile's processes (the host, each card) gets a track of its own.
+
 Usage:
     python -m brpc_tpu_torch.tools.trace_stitch --trace-id 1f00d... \\
         --out trace.json host1:port1 host2:port2
@@ -43,6 +50,9 @@ Usage:
     # one file with spans AND the flight-recorder timeline of every node:
     python -m brpc_tpu_torch.tools.trace_stitch --trace-id 1f00d... \\
         --timeline --local client --out trace.json host1:port1 host2:port2
+    # with a profiler trace this process exported (export_chrome_trace):
+    python -m brpc_tpu_torch.tools.trace_stitch --local client \\
+        --profile profile.json --out trace.json host1:port1
 
 Importable pieces (the port's kv_disagg `--out` uses them): `fetch_rpcz`,
 `local_rpcz`, `stitch`, `fetch_timeline`, `local_timeline`.
@@ -394,8 +404,35 @@ def _timeline_chrome_events(pid: int, dump: dict, base: float,
     return events
 
 
+def _profile_chrome_events(node: str, profile: dict, base_us: float,
+                           first_pid: int) -> list:
+    """One node's torch.profiler Chrome trace → its events on the stitched
+    wall clock (`ts` + `base_us`), each of its processes on a new pid
+    from `first_pid` up, named after the node."""
+    pids: dict = {}
+    events = []
+    for e in profile.get("traceEvents", []):
+        if "pid" not in e:
+            continue
+        e = dict(e)
+        if e["pid"] not in pids:
+            pids[e["pid"]] = first_pid + len(pids)
+            events.append({"ph": "M", "name": "process_name",
+                           "pid": pids[e["pid"]],
+                           "args": {"name": f"{node} (profiler "
+                                            f"{e['pid']})"}})
+        e["pid"] = pids[e["pid"]]
+        if e.get("ph") == "M" and e.get("name") == "process_name":
+            continue  # named above
+        if "ts" in e:
+            e["ts"] = float(e["ts"]) + base_us
+        events.append(e)
+    return events
+
+
 def stitch(dumps: dict[str, dict], trace_id: str | None = None,
-           timeline_dumps: dict[str, dict] | None = None) -> dict:
+           timeline_dumps: dict[str, dict] | None = None,
+           profiles: dict[str, dict] | None = None) -> dict:
     """Joins {node_name: rpcz_dump} into one Chrome trace-event object.
 
     Returns {"traceEvents": [...], "displayTimeUnit": "ms", "stitch":
@@ -405,7 +442,10 @@ def stitch(dumps: dict[str, dict], trace_id: str | None = None,
     ({node_name: /timeline dump}) merges each node's flight-recorder
     events into the same file on the same corrected clocks — timeline
     events are NOT trace-filtered (the scheduling/transport context
-    AROUND a span is exactly what the timeline tier exists to show)."""
+    AROUND a span is exactly what the timeline tier exists to show).
+    `profiles` ({node_name: torch.profiler Chrome trace}) merges each
+    node's profiler events the same way (the summary then counts them as
+    "profile_events")."""
     offsets = _node_offsets(dumps)
     # Global index for parent-link accounting (across ALL nodes).
     all_ids = set()
@@ -488,6 +528,16 @@ def stitch(dumps: dict[str, dict], trace_id: str | None = None,
                                           span_by_id, span_by_fid)
             timeline_events += sum(1 for e in evs if e["ph"] != "M")
             events.extend(evs)
+    profile_events = 0
+    next_pid = 1 + max((e["pid"] for e in events if "pid" in e), default=-1)
+    for node in sorted(profiles or {}):
+        prof = profiles[node]
+        base = (float(prof.get("baseTimeNanoseconds", 0)) / 1000.0
+                + offsets.get(node, 0.0))
+        evs = _profile_chrome_events(node, prof, base, next_pid)
+        next_pid = 1 + max((e["pid"] for e in evs), default=next_pid - 1)
+        profile_events += sum(1 for e in evs if e.get("ph") != "M")
+        events.extend(evs)
     # Rebase so the trace starts near 0 (Perfetto-friendly); timeline
     # events can precede the first span, so take the global minimum.
     t0 = min((e["ts"] for e in events if "ts" in e), default=None)
@@ -495,20 +545,19 @@ def stitch(dumps: dict[str, dict], trace_id: str | None = None,
         for e in events:
             if "ts" in e:
                 e["ts"] -= t0
-    return {
-        "traceEvents": events,
-        "displayTimeUnit": "ms",
-        "stitch": {
-            "trace_id": trace_id,
-            "nodes": sorted(dumps),
-            "spans": spans_total,
-            "parent_linked": parent_linked,
-            "timeline_events": timeline_events,
-            "timeline_nodes": sorted(timeline_dumps or {}),
-            "node_offsets_us": {n: round(v, 1)
-                                for n, v in offsets.items()},
-        },
+    summary = {
+        "trace_id": trace_id,
+        "nodes": sorted(dumps),
+        "spans": spans_total,
+        "parent_linked": parent_linked,
+        "timeline_events": timeline_events,
+        "timeline_nodes": sorted(timeline_dumps or {}),
+        "node_offsets_us": {n: round(v, 1) for n, v in offsets.items()},
     }
+    if profiles:
+        summary["profile_events"] = profile_events
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "stitch": summary}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -529,6 +578,10 @@ def main(argv: list[str] | None = None) -> int:
                          "events into the same Perfetto file")
     ap.add_argument("--timeline-limit", type=int, default=4096,
                     help="max timeline events pulled per node thread")
+    ap.add_argument("--profile", metavar="PATH", default=None,
+                    help="a torch.profiler Chrome trace of THIS process "
+                         "(export_chrome_trace), merged on the wall clock "
+                         "as the --local node (default name: local)")
     ap.add_argument("--out", default="-",
                     help="output path (default: stdout)")
     args = ap.parse_args(argv)
@@ -537,8 +590,12 @@ def main(argv: list[str] | None = None) -> int:
         dumps[ep] = fetch_rpcz(ep, args.trace_id, args.limit)
     if args.local:
         dumps[args.local] = local_rpcz(args.trace_id, args.limit)
-    if not dumps:
-        ap.error("no endpoints given (and --local not set)")
+    profiles: dict[str, dict] = {}
+    if args.profile:
+        with open(args.profile) as f:
+            profiles[args.local or "local"] = json.load(f)
+    if not dumps and not profiles:
+        ap.error("no endpoints given (and neither --local nor --profile)")
     timeline_dumps: dict[str, dict] | None = None
     if args.timeline:
         timeline_dumps = {}
@@ -547,7 +604,7 @@ def main(argv: list[str] | None = None) -> int:
         if args.local:
             timeline_dumps[args.local] = local_timeline(
                 args.timeline_limit)
-    trace = stitch(dumps, args.trace_id, timeline_dumps)
+    trace = stitch(dumps, args.trace_id, timeline_dumps, profiles or None)
     text = json.dumps(trace)
     if args.out == "-":
         print(text)
@@ -557,7 +614,8 @@ def main(argv: list[str] | None = None) -> int:
         s = trace["stitch"]
         print(f"wrote {args.out}: {s['spans']} spans "
               f"({s['parent_linked']} parent-linked) + "
-              f"{s['timeline_events']} timeline events from "
+              f"{s['timeline_events']} timeline events + "
+              f"{s.get('profile_events', 0)} profiler events from "
               f"{len(s['nodes'])} nodes", file=sys.stderr)
     return 0
 

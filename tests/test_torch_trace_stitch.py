@@ -213,3 +213,39 @@ def test_main_writes_a_stitched_file_of_this_process(tmp_path, recorder):
     assert trace["stitch"]["timeline_nodes"] == ["me"]
     with pytest.raises(SystemExit):
         trace_stitch.main([])  # no endpoints and no --local
+
+
+def test_a_profiler_trace_joins_the_rpcz_spans_on_the_wall_clock(tmp_path):
+    """A torch.profiler Chrome trace of this process lands on the clock
+    the node's rpcz spans are mapped onto: a host span opened inside an
+    rpcz span lies inside it in the stitched file, through `stitch` and
+    through `main --profile`."""
+    import torch.profiler as tp
+
+    with tp.profile(activities=[tp.ProfilerActivity.CPU]) as prof:
+        with observe.trace("stitch-profile") as t:
+            time.sleep(0.02)
+            with observe.span("trpc.test.inner"):
+                time.sleep(0.005)
+            time.sleep(0.02)
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    hexid = f"{t.trace_id:016x}"
+    dumps = {"me": trace_stitch.local_rpcz(hexid)}
+    profile = json.loads(path.read_text())
+    out = tmp_path / "trace.json"
+    assert trace_stitch.main(["--local", "me", "--trace-id", hexid,
+                              "--profile", str(path),
+                              "--out", str(out)]) == 0
+    for got in (trace_stitch.stitch(dumps, hexid, profiles={"me": profile}),
+                json.loads(out.read_text())):
+        (outer,) = [e for e in got["traceEvents"]
+                    if e["name"] == "stitch-profile" and e["ph"] == "X"]
+        (inner,) = [e for e in got["traceEvents"]
+                    if e["name"] == "trpc.test.inner" and e["ph"] == "X"]
+        assert outer["ts"] + 10_000 < inner["ts"]
+        assert inner["ts"] + inner["dur"] + 10_000 < outer["ts"] + outer["dur"]
+        assert inner["pid"] != outer["pid"]  # the profiler's own track
+        assert got["stitch"]["profile_events"] > 0
+    # Without profiles the summary is the reference's.
+    assert "profile_events" not in trace_stitch.stitch(dumps, hexid)["stitch"]
