@@ -32,9 +32,33 @@
 // caller's stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (cudaErrorMisalignedAddress, launching nothing, for a
 // pointer that is not 4-byte aligned).  The caller zeroes *acc.
+//
+// The batched landing (brpc_echo_land_batch, at the end of this file): the
+// same pass over up to kLandMaxCalls responses of one size that landed in
+// device-mapped host memory (pinned, or registered with cudaHostRegister),
+// read in place.  One launch on the caller's stream copies call c's lanes
+// into row c of one device output and writes its wrapping sum to sums[c].
+// It stands in, for each call, for an H2D copy, the zero fill of *acc and
+// a K1 launch: at 1 KiB those cost the host far more than the bytes cost
+// the link.  Bound: the PCIe link (~50 GB/s one way on an H100 SXM host),
+// not HBM; design against it: a grid of (blocks per call, calls) so every
+// call's loads are in flight at once, uint4 loads that neighbouring
+// threads issue on neighbouring addresses, kUnroll of them in flight per
+// thread, and loads that bypass the caches (ld.global.cv), since the host
+// rewrites a landing buffer between launches.  Where one block covers a
+// call (up to kThreads x kUnroll uint4, 16 KiB) it stores the call's sum
+// plainly and needs no zero fill; where several do, the C call zeroes the
+// k sums with one cudaMemsetAsync and the blocks add theirs atomically.
+// The k landing addresses travel by value in the kernel's parameters: no
+// device allocation, no copy of a pointer table.  Every landing address
+// and the output need 16-byte alignment and the lanes a multiple of 4, or
+// the entry launches nothing and returns cudaErrorMisalignedAddress.
+// brpc_echo_mapped_ptr tells the caller, once per landing buffer, whether
+// and where the current device reads it.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
@@ -52,9 +76,9 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
-// The block's sum of every thread's `sum`, added to *acc by one atomic.
+// The block's sum of every thread's `sum`, valid in thread 0.
 template <int Threads>
-__device__ __forceinline__ void add_block_sum(unsigned sum, unsigned* acc) {
+__device__ __forceinline__ unsigned block_sum(unsigned sum) {
   __shared__ unsigned warp_sums[Threads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -66,9 +90,16 @@ __device__ __forceinline__ void add_block_sum(unsigned sum, unsigned* acc) {
   if (warp == 0) {
     sum = lane < Threads / 32 ? warp_sums[lane] : 0u;
     sum = warp_sum(sum);
-    if (lane == 0) {
-      atomicAdd(acc, sum);
-    }
+  }
+  return sum;
+}
+
+// The block's sum of every thread's `sum`, added to *acc by one atomic.
+template <int Threads>
+__device__ __forceinline__ void add_block_sum(unsigned sum, unsigned* acc) {
+  sum = block_sum<Threads>(sum);
+  if (threadIdx.x == 0) {
+    atomicAdd(acc, sum);
   }
 }
 
@@ -253,4 +284,149 @@ extern "C" int brpc_echo_fused_geom(const void* in, void* out, void* acc,
       return launch_unroll<1024>(unroll, in, out, acc, n_lanes, grid, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The batched landing; see the header.
+
+namespace {
+
+constexpr int kLandMaxCalls = 64;
+constexpr int kMaxDevices = 64;
+
+// The landing addresses of one launch, in the kernel's parameters.
+struct LandCalls {
+  const uint4* src[kLandMaxCalls];
+};
+
+// Call blockIdx.y: its n_vec uint4 from host memory into its row of out,
+// its wrapping sum into sums[blockIdx.y] (stored by a lone block, added
+// by each of several).
+template <int Threads, int Unroll>
+__global__ void __launch_bounds__(Threads)
+    echo_land_kernel(const __grid_constant__ LandCalls calls,
+                     uint4* __restrict__ out, size_t n_vec,
+                     unsigned* __restrict__ sums) {
+  const unsigned call = blockIdx.y;
+  const uint4* in = calls.src[call];
+  uint4* dst = out + call * n_vec;
+  const size_t stride = static_cast<size_t>(gridDim.x) * Threads;
+  size_t i = static_cast<size_t>(blockIdx.x) * Threads + threadIdx.x;
+  unsigned sum = 0;
+  for (; i + (Unroll - 1) * stride < n_vec; i += Unroll * stride) {
+    uint4 v[Unroll];
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u) {
+      v[u] = __ldcv(in + i + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < Unroll; ++u) {
+      __stcs(dst + i + u * stride, v[u]);
+      sum += v[u].x + v[u].y + v[u].z + v[u].w;
+    }
+  }
+  for (; i < n_vec; i += stride) {
+    const uint4 v = __ldcv(in + i);
+    __stcs(dst + i, v);
+    sum += v.x + v.y + v.z + v.w;
+  }
+  sum = block_sum<Threads>(sum);
+  if (threadIdx.x == 0) {
+    if (gridDim.x == 1) {
+      sums[call] = sum;
+    } else {
+      atomicAdd(sums + call, sum);
+    }
+  }
+}
+
+// The number of SMs of the current device, asked of CUDA once per
+// device; a CUDA error below 0.
+int cached_sm_count() {
+  static std::atomic<int> cached[kMaxDevices];
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) {
+    return -static_cast<int>(err);
+  }
+  if (dev < 0 || dev >= kMaxDevices) {
+    return sm_count();
+  }
+  // relaxed: every thread that races here stores the same count.
+  int sms = cached[dev].load(std::memory_order_relaxed);
+  if (sms <= 0) {
+    sms = sm_count();
+    if (sms > 0) {
+      cached[dev].store(sms, std::memory_order_relaxed);
+    }
+  }
+  return sms;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
+
+// k (1 to kLandMaxCalls) calls of n_lanes uint32 lanes each, landed at the
+// device-readable addresses srcs[0..k), into out (k rows of n_lanes) and
+// sums (k uint32) on the current device, on `stream`.
+extern "C" int brpc_echo_land_batch(const void* const* srcs, int k,
+                                    void* out, void* sums, size_t n_lanes,
+                                    void* stream) {
+  if (k < 1 || k > kLandMaxCalls || n_lanes == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!aligned16(out) || n_lanes % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(sums) % 4 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  LandCalls calls{};
+  for (int c = 0; c < k; ++c) {
+    if (!aligned16(srcs[c])) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    calls.src[c] = static_cast<const uint4*>(srcs[c]);
+  }
+  const int sms = cached_sm_count();
+  if (sms < 0) {
+    return -sms;
+  }
+  const size_t n_vec = n_lanes / 4;
+  const size_t per_block = static_cast<size_t>(kThreads) * kUnroll;
+  const size_t want = (n_vec + per_block - 1) / per_block;
+  const size_t fill = static_cast<size_t>(sms) * kBlocksPerSm / k;
+  const size_t cap = fill > 0 ? fill : 1;
+  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* sum = static_cast<unsigned*>(sums);
+  if (blocks > 1) {
+    const cudaError_t err =
+        cudaMemsetAsync(sum, 0, static_cast<size_t>(k) * sizeof(unsigned), s);
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+  }
+  echo_land_kernel<kThreads, kUnroll>
+      <<<dim3(blocks, static_cast<unsigned>(k)), kThreads, 0, s>>>(
+          calls, static_cast<uint4*>(out), n_vec, sum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Where the current device reads the host memory at `host`: *dev gets the
+// address, or null where the memory is not device-mapped (pageable).
+extern "C" int brpc_echo_mapped_ptr(const void* host, void** dev) {
+  cudaPointerAttributes attr{};
+  const cudaError_t err = cudaPointerGetAttributes(&attr, host);
+  if (err == cudaErrorInvalidValue) {  // memory CUDA does not know
+    cudaGetLastError();
+    *dev = nullptr;
+    return 0;
+  }
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  *dev = attr.type == cudaMemoryTypeHost ? attr.devicePointer : nullptr;
+  return 0;
 }

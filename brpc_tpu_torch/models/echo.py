@@ -17,17 +17,38 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from brpc_tpu_torch.ops.checksum import sum32
-from brpc_tpu_torch.ops.echo_kernel import _COLS, _ROWS, echo_fused
+from brpc_tpu_torch.ops.echo_kernel import (_COLS, _ROWS, batched_landing,
+                                            echo_fused, echo_land_batch)
 from brpc_tpu_torch.parallel import collectives as coll
 from brpc_tpu_torch.parallel.fabric import Fabric, P
 from brpc_tpu_torch.rpc import zerocopy
 from brpc_tpu_torch.rpc.batch import _landing_bytes
 from brpc_tpu_torch.rpc.client import make_rpc_error
-from brpc_tpu_torch.rpc.observe import span
+from brpc_tpu_torch.rpc.observe import Gauge, span
 from brpc_tpu_torch.transport.ici import IciTransport, _ring_perm
+
+#: Process-wide counters in /vars: calls that EchoPipelines landed, and
+#: those of them landed by the batched launch (`echo_land_batch`).
+LANDED = "trpc_echo_landed"
+LANDED_BATCHED = "trpc_echo_landed_batched"
+_landed_lock = threading.Lock()
+_landed = None
+
+
+def _landed_vars():
+    global _landed
+    with _landed_lock:
+        if _landed is None:
+            _landed = (
+                Gauge(LANDED, "calls that echo pipelines landed"),
+                Gauge(LANDED_BATCHED, "calls that echo pipelines landed "
+                      "through the batched in-place launch"))
+    return _landed
 
 
 def single_chip_echo_step(payload: torch.Tensor):
@@ -78,21 +99,42 @@ class EchoPipeline:
     memory per submit for a GPU payload), each response landing in one of
     the caller's `resp_bufs` (any `Batch.submit` takes: CPU tensors, pinned
     for a GPU payload, or `RmaBuffer`s, CUDA-registered for a GPU payload).
-    `poll()` drains completions with the GIL released, copies each landed
-    response back to the device (non_blocking) and checksums it there with
-    K1, returning (echoed tensor, echoed checksum) pairs.  A landing buffer
-    goes back to the free list with an event recorded after its H2D copy,
-    and is reused only once that event has completed.  A failed member
-    raises its typed error once the rest of the drained completions are
+    `poll()` drains completions with the GIL released and lands them on
+    the device, returning (echoed tensor, echoed checksum) pairs, in one
+    of two ways that the pipeline picks once, in its constructor, from
+    what it can observe (`echo_kernel.batched_landing`):
+
+    - batched: a CUDA payload below LAND_BATCH_BELOW (1 MiB) bytes whose
+      every landing buffer is device-mapped host memory (pinned, or a
+      CUDA-registered RmaBuffer) in K1's 16-byte phase.  One launch per
+      64 calls a poll (`echo_land_batch`) reads the drained responses in
+      place over PCIe, writes each to a row of one device output and its
+      wrapping sum to one sums tensor; the pairs are row and element
+      views of those.  One event per poll, recorded after the launch,
+      guards every landing buffer it read.
+    - per call, otherwise: each landed response is copied back to the
+      device (non_blocking) and checksummed there by K1 (`echo_fused`),
+      with an event per call after its H2D copy; a CPU payload takes the
+      plain version.
+
+    A landing buffer goes back to the free list with its event and is
+    reused only once that event has completed.  A failed member raises
+    its typed error once the rest of the drained completions are
     accounted for; its landing buffer is retired, never reused, since a
     late server-side put may still reach an RmaBuffer.  `rows`/`cols` are
     echo_fused's tile contract (a 1 KiB payload passes rows=1, cols=256).
+    The process-wide gauges `trpc_echo_landed` and
+    `trpc_echo_landed_batched` count the calls landed, and those landed
+    batched.
 
     Under a torch profiler each step is a span (`observe.span`):
     `trpc.echo.submit` holds `trpc.echo.reuse_wait` (a buffer's earlier
-    H2D copy) and the batch's `trpc.batch.stage`/`.issue`; `trpc.echo.poll`
-    holds `trpc.batch.wait` and, per completion, `trpc.echo.land` (the H2D
-    copy and its event) and `trpc.echo.check` (K1 on the landed copy)."""
+    landing read) and the batch's `trpc.batch.stage`/`.issue`;
+    `trpc.echo.poll` holds `trpc.batch.wait` and, per completion,
+    `trpc.echo.land` and `trpc.echo.check`: per call the H2D copy and
+    its event, then K1 on the landed copy; batched the call's landing
+    address taken, then its row and sum handed out, with the poll's one
+    launch and event between them in the poll's own time."""
 
     def __init__(self, channel, payload: torch.Tensor, resp_bufs,
                  method: str = "Echo.Echo", timeout_ms: int = 0,
@@ -104,12 +146,20 @@ class EchoPipeline:
         self._lib = channel._lib
         self._method = method
         self._timeout_ms = timeout_ms
+        hosts = []
         for buf in resp_bufs:
-            if _landing_bytes(buf).size < self.nbytes:
+            view = _landing_bytes(buf)
+            if view.size < self.nbytes:
                 raise ValueError(f"a landing buffer is smaller than the "
                                  f"{self.nbytes}-byte response")
+            hosts.append(view.ctypes.data)
         self._free = [(buf, None) for buf in resp_bufs]
         self._inflight: dict[int, object] = {}
+        addrs = batched_landing(self.device, self.nbytes, hosts)
+        # id(landing buffer) -> its device address, where poll lands batched
+        self._mapped = None if addrs is None else {
+            id(buf): a for buf, a in zip(resp_bufs, addrs)}
+        self._landed = _landed_vars()
         self._pipe = channel.pipeline()
 
     @property
@@ -120,7 +170,7 @@ class EchoPipeline:
         buf, copied = self._free.pop()
         with span("trpc.echo.reuse_wait"):
             if copied is not None:
-                copied.synchronize()  # the H2D copy that read it is done
+                copied.synchronize()  # what read it (copy or launch) is done
         return buf
 
     def submit(self, k: int) -> None:
@@ -146,7 +196,7 @@ class EchoPipeline:
         return out
 
     def _poll(self, max_n: int, timeout_ms: int):
-        out, error = [], None
+        landed, error = [], None
         for c in self._pipe.poll(max_n=max_n, timeout_ms=timeout_ms):
             buf = self._inflight.pop(c.token)
             if not c.ok:  # retired: the buffer leaves the free list
@@ -158,20 +208,50 @@ class EchoPipeline:
                     f"echo returned {c.resp_len} bytes for {self.nbytes} "
                     f"(in caller buffer: {c.in_caller_buffer})")
                 continue
+            landed.append(buf)
+        if not landed:
+            return [], error
+        total, batched = self._landed
+        total.add(len(landed))
+        if self._mapped is None:
+            return [self._land(buf) for buf in landed], error
+        batched.add(len(landed))
+        return self._land_batched(landed), error
+
+    def _land(self, buf):
+        """One call's response: an H2D copy, its event, K1."""
+        with span("trpc.echo.land"):
+            landed = torch.from_numpy(
+                _landing_bytes(buf)[:self.nbytes]).view(torch.int32)
+            back = landed.to(self.device, non_blocking=True, copy=True)
+            copied = None
+            if back.is_cuda:
+                copied = torch.cuda.Event()
+                copied.record()
+            self._free.append((buf, copied))
+        back = back.view(torch.uint32)
+        with span("trpc.echo.check"):
+            _, got = echo_fused(back, *self._tile)
+        return back, got
+
+    def _land_batched(self, bufs):
+        """A poll's responses read in place by one launch per 64 calls,
+        and one event after it for every buffer read."""
+        addrs = []
+        for buf in bufs:
             with span("trpc.echo.land"):
-                landed = torch.from_numpy(
-                    _landing_bytes(buf)[:self.nbytes]).view(torch.int32)
-                back = landed.to(self.device, non_blocking=True, copy=True)
-                copied = None
-                if back.is_cuda:
-                    copied = torch.cuda.Event()
-                    copied.record()
-                self._free.append((buf, copied))
-            back = back.view(torch.uint32)
+                addrs.append(self._mapped[id(buf)])
+        with torch.cuda.device(self.device):
+            backs, sums = echo_land_batch(addrs, self.copy.numel(),
+                                          self.device)
+            read = torch.cuda.Event()
+            read.record()
+        out = []
+        for buf, back, got in zip(bufs, backs.unbind(0), sums.unbind(0)):
             with span("trpc.echo.check"):
-                _, got = echo_fused(back, *self._tile)
-            out.append((back, got))
-        return out, error
+                self._free.append((buf, read))
+                out.append((back, got))
+        return out
 
     def close(self) -> None:
         self._pipe.close()

@@ -5,6 +5,11 @@ response": a copy plus a checksum.  `echo_fused` does both in one pass over
 device memory with kernel K1 (csrc/echo_kernel.cu, replacing the reference's
 Pallas `_kernel`).  A CUDA payload always goes to the kernel, or raises; a
 CPU payload takes the plain version, `echo_reference`.
+
+`echo_land_batch` is K1's batched landing: one launch per LAND_MAX_CALLS
+small responses, read in place from the device-mapped host buffers they
+landed in, each copied into a row of one device output and summed
+(`batched_landing` says when a pipeline's landings qualify).
 """
 
 from __future__ import annotations
@@ -24,6 +29,17 @@ _BLOCK = _ROWS * _COLS  # uint32 lanes per reference grid step (512KB)
 KERNEL = "echo_kernel"   # csrc/<KERNEL>.cu
 WRAPPER = "echo_fused"   # its name in _kernels.launches
 GEOM_WRAPPER = "echo_fused_geom"  # the geometry entry's name there
+LAND_WRAPPER = "echo_land_batch"  # the batched landing's name there
+
+#: Calls one batched landing launch reads at most (csrc's kLandMaxCalls);
+#: a poll that drained more takes one launch per LAND_MAX_CALLS.
+LAND_MAX_CALLS = 64
+#: Responses below this many bytes land through the batched launch.  At
+#: PCIe's ~50 GB/s 1 MiB takes ~21 us, less than the ~60 to 90 us of host
+#: that each call's H2D copy, zero fill and K1 launch cost; well above
+#: it the copy engines and K1 at HBM rate are the right tools (SMs reading
+#: a 64 MiB response over PCIe would hold them ~1.3 ms).
+LAND_BATCH_BELOW = 1 << 20
 
 #: Launch geometries the geometry entry has compiled in, and the one
 #: `brpc_echo_fused` launches: (threads per block, uint4 loads in flight
@@ -48,6 +64,23 @@ def _geom_entry():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _land_entry():
+    fn = _kernels.load(KERNEL).brpc_echo_land_batch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _mapped_entry():
+    fn = _kernels.load(KERNEL).brpc_echo_mapped_ptr
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -206,6 +239,69 @@ def echo_fused_into(payload: torch.Tensor, copy: torch.Tensor,
                          "device")
     with torch.cuda.device(payload.device):
         _launch(payload, copy, acc, geometry)
+
+
+def mapped_pointer(host_ptr: int, device) -> int | None:
+    """The address at which CUDA `device` reads the host memory at
+    host_ptr, or None where that memory is not device-mapped (pageable).
+    Pinned and cudaHostRegister-ed memory is mapped under unified
+    addressing."""
+    dev = ctypes.c_void_p()
+    with torch.cuda.device(device):
+        rc = _mapped_entry()(host_ptr, ctypes.byref(dev))
+    if rc != 0:
+        raise RuntimeError(f"cudaPointerGetAttributes failed: cudaError {rc}")
+    return dev.value
+
+
+def batched_landing(device, nbytes: int, hosts, mapped=mapped_pointer):
+    """The engage rule of the batched landing: the device addresses of the
+    landing buffers at host addresses `hosts` when responses of `nbytes`
+    bytes for a payload on `device` land through `echo_land_batch`, else
+    None.  It needs a CUDA device, nbytes below LAND_BATCH_BELOW in whole
+    16-byte lanes, and every buffer device-mapped (`mapped(host, device)`
+    not None) in K1's 16-byte phase; the buffers are asked only when the
+    rest holds."""
+    if (torch.device(device).type != "cuda"
+            or not 0 < nbytes < LAND_BATCH_BELOW or nbytes % 16):
+        return None
+    addrs = [mapped(h, device) for h in hosts]
+    if any(a is None or a % 16 for a in addrs):
+        return None
+    return addrs
+
+
+def land_chunks(k: int) -> list:
+    """[(start, stop)] of the launches that land k calls, at most
+    LAND_MAX_CALLS each, in order."""
+    return [(i, min(i + LAND_MAX_CALLS, k))
+            for i in range(0, k, LAND_MAX_CALLS)]
+
+
+def echo_land_batch(addrs, lanes: int, device):
+    """K1 over k landed responses read in place: addrs are the device
+    addresses (from `batched_landing`) of k responses of `lanes` uint32
+    lanes each.  Returns (out, sums): a (k, lanes) uint32 tensor whose
+    row c is response c, and a (k,) uint32 tensor whose element c is its
+    wrapping sum, both on `device`, which must be the current device.
+    One launch per LAND_MAX_CALLS calls on the current stream; the
+    landing buffers must hold their bytes until an event recorded after
+    it has completed."""
+    k = len(addrs)
+    out = torch.empty((k, lanes), dtype=torch.int32, device=device)
+    sums = torch.empty(k, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    entry = _land_entry()
+    for start, stop in land_chunks(k):
+        n = stop - start
+        rc = entry((ctypes.c_void_p * n)(*addrs[start:stop]), n,
+                   out.data_ptr() + start * lanes * 4,
+                   sums.data_ptr() + start * 4, lanes, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"batched landing launch failed: cudaError {rc}")
+        _kernels.count_launch(LAND_WRAPPER)
+    return out.view(torch.uint32), sums.view(torch.uint32)
 
 
 def echo_reference(payload: torch.Tensor):

@@ -71,7 +71,9 @@ built from.  Then it:
    at depth 256 over one connection; one warm window, then ~1 s of the
    windowed refill loop, each sent checksum held bit-exact against the
    plain version's and every landed response checksummed on the card by
-   K1; then the request pins drain to 0, an exhausted deadline_scope raises
+   K1 (the 1 KiB leg by its batched landing, one launch per 64 calls a
+   poll; each leg logs both wrappers' launch counts); then the request
+   pins drain to 0, an exhausted deadline_scope raises
    DeadlineExpiredError, and an inference server streams 4 prompts to EOS;
 10. drives the KV-block plane at tools/kv_disagg.py's sizes, with every
    launch count reset just before and read just after: a seeded 96 MiB
@@ -1346,11 +1348,14 @@ def _batch_leg(ch, payload, depth: int, bufs, tile) -> dict:
     import torch
 
     from brpc_tpu_torch.models.echo import EchoPipeline, rpc_batch_echo_step
-    from brpc_tpu_torch.ops.echo_kernel import echo_reference
+    from brpc_tpu_torch.ops import _kernels
+    from brpc_tpu_torch.ops.echo_kernel import (LAND_WRAPPER, WRAPPER,
+                                                echo_reference)
 
     def same(a, b) -> bool:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
+    launched = {w: _kernels.launches[w] for w in (WRAPPER, LAND_WRAPPER)}
     plain_sum = u32(echo_reference(payload)[1])
     echoed, sent, got = rpc_batch_echo_step(ch, payload, depth, bufs,
                                             rows=tile[0], cols=tile[1])
@@ -1395,7 +1400,9 @@ def _batch_leg(ch, payload, depth: int, bufs, tile) -> dict:
     return {"goodput_gbps": pipe.nbytes * completed / secs / 1e9,
             "calls": completed, "submits": submits, "seconds": secs,
             "depth": depth, "bytes": pipe.nbytes,
-            "checked_on_device": completed + depth}
+            "checked_on_device": completed + depth,
+            "launches": {w: _kernels.launches[w] - n
+                         for w, n in launched.items()}}
 
 
 def phase_batch_path(dev, card: str, log) -> dict:
@@ -1493,6 +1500,7 @@ def phase_batch_path(dev, card: str, log) -> dict:
                 f"{leg['calls']} x {leg['bytes']} B at depth {leg['depth']} "
                 f"in {leg['seconds']:.3f} s, {leg['goodput_gbps']} GB/s; "
                 f"{leg['checked_on_device']} responses checked by K1; "
+                f"launches {json.dumps(leg['launches'])}; "
                 f"vars {json.dumps(leg['vars'])}")
         tcp = out["legs"]["tcp"]
         log(f"batch tcp host copies of 64 MiB: D2H {tcp['d2h_ms']} ms, H2D "

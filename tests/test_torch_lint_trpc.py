@@ -140,6 +140,17 @@ PORT_MUTATIONS = [
      "ctypes.c_int,\n        ctypes.c_void_p]", "ctypes.c_int]"),
     ("lcg_size_as_int", "capi-gil", "brpc_tpu_torch/ops/lcg.py",
      "ctypes.c_size_t", "ctypes.c_int"),
+    ("land_batch_stream_dropped", "capi-gil",
+     "brpc_tpu_torch/ops/echo_kernel.py",
+     "ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]",
+     "ctypes.c_void_p, ctypes.c_size_t]"),
+    ("mapped_ptr_restype_dropped", "capi-gil",
+     "brpc_tpu_torch/ops/echo_kernel.py",
+     "    fn = _kernels.load(KERNEL).brpc_echo_mapped_ptr\n"
+     "    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]\n"
+     "    fn.restype = ctypes.c_int\n",
+     "    fn = _kernels.load(KERNEL).brpc_echo_mapped_ptr\n"
+     "    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]\n"),
     ("pydll", "capi-gil", "brpc_tpu_torch/ops/_kernels.py", "ctypes.CDLL(",
      "ctypes.PyDLL("),
     ("timeline_renumbered", "timeline-event", _OBSERVE,
@@ -190,6 +201,19 @@ def test_fenced_ring_binding_is_held_to_its_prototype(tree, old, new, tail):
                and "brpc_tpu_torch/csrc/ring_kernel.cu:" in v
                for v in found), found
     assert any(tail in v for v in found), found
+
+
+def test_land_batch_binding_reports_the_count_and_the_prototype(tree):
+    """The batched landing's binding is read where `_kernels.load(...)`
+    loads it, like brpc_echo_fused's."""
+    with mutated(tree, "brpc_tpu_torch/ops/echo_kernel.py",
+                 "ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]",
+                 "ctypes.c_void_p, ctypes.c_size_t]"):
+        found = lint_trpc.lint(tree)
+    assert len(found) == 1, found
+    assert ("brpc_echo_land_batch takes 6 argument(s) "
+            "(brpc_tpu_torch/csrc/echo_kernel.cu:") in found[0]
+    assert found[0].endswith("but argtypes lists 5")
 
 
 def test_kernel_entry_without_a_definition_is_reported(tree):
