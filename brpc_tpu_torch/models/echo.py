@@ -17,7 +17,9 @@
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 
 import torch
 
@@ -36,8 +38,16 @@ from brpc_tpu_torch.transport.ici import IciTransport, _ring_perm
 #: those of them landed by the batched launch (`echo_land_batch`).
 LANDED = "trpc_echo_landed"
 LANDED_BATCHED = "trpc_echo_landed_batched"
+#: Per-tenant counters in /vars of pipelines whose channel carries a QoS
+#: tag: calls landed, and host microseconds their submits spent blocked on
+#: device work (`.format(tenant)`).
+TENANT_LANDED = "trpc_echo_{}_landed"
+TENANT_DEVICE_WAIT_US = "trpc_echo_{}_device_wait_us"
 _landed_lock = threading.Lock()
 _landed = None
+_tenants: dict = {}  # tenant -> (landed, device_wait_us) gauges
+_streams: dict = {}  # (device index, tenant, priority) -> its class stream
+_NO_STREAM = contextlib.nullcontext()
 
 
 def _landed_vars():
@@ -49,6 +59,37 @@ def _landed_vars():
                 Gauge(LANDED_BATCHED, "calls that echo pipelines landed "
                       "through the batched in-place launch"))
     return _landed
+
+
+def _tenant_vars(tenant: str):
+    with _landed_lock:
+        pair = _tenants.get(tenant)
+        if pair is None:
+            pair = _tenants[tenant] = (
+                Gauge(TENANT_LANDED.format(tenant),
+                      f"calls that echo pipelines of tenant {tenant!r} "
+                      "landed"),
+                Gauge(TENANT_DEVICE_WAIT_US.format(tenant),
+                      f"host microseconds the submits of echo pipelines of "
+                      f"tenant {tenant!r} spent blocked on device work"))
+    return pair
+
+
+def class_stream(device: torch.device, tenant: str,
+                 priority: int) -> torch.cuda.Stream:
+    """The CUDA stream of the QoS class (tenant, priority) on `device`,
+    taken once from torch's stream pool and shared by the class's
+    pipelines (so the caching allocator's blocks for it stay warm): lane 0
+    (priority 0) at the highest priority torch offers, every other lane at
+    priority 0, the default."""
+    key = (device.index, tenant, priority)
+    with _landed_lock:
+        stream = _streams.get(key)
+        if stream is None:
+            prio = torch.cuda.Stream.priority_range()[1] if priority == 0 \
+                else 0
+            stream = _streams[key] = torch.cuda.Stream(device, priority=prio)
+    return stream
 
 
 def single_chip_echo_step(payload: torch.Tensor):
@@ -117,6 +158,23 @@ class EchoPipeline:
       with an event per call after its H2D copy; a CPU payload takes the
       plain version.
 
+    A QoS class runs on a stream of its own.  When `channel.qos` carries
+    a tag (tenant, priority) and the payload is on a card, every device op
+    of the pipeline runs on the class's stream (`class_stream`; lane 0 at
+    the highest priority): K1's copy in the constructor (after the caller's
+    current stream, which made the payload), the staging D2H of each
+    submit, so that its synchronise waits on this class's work only, the
+    per-call H2D and K1, the batched launch, and every landing-buffer
+    event.  What the constructor and `poll` hand back is safe on the
+    caller's current stream: that stream waits on the class stream's work
+    so far, and `record_stream` keeps the tensors' blocks from the
+    allocator until it is done with them.  An untagged pipeline runs on
+    the caller's current stream.  A tagged pipeline also adds to its
+    tenant's gauges `trpc_echo_<tenant>_landed` and
+    `trpc_echo_<tenant>_device_wait_us` (the event synchronises of
+    `reuse_wait` and the staging synchronise, host microseconds; a poll
+    blocks on none).
+
     A landing buffer goes back to the free list with its event and is
     reused only once that event has completed.  A failed member raises
     its typed error once the rest of the drained completions are
@@ -140,8 +198,16 @@ class EchoPipeline:
                  method: str = "Echo.Echo", timeout_ms: int = 0,
                  rows: int = _ROWS, cols: int = _COLS):
         self._tile = (rows, cols)
-        self.copy, self.sent = echo_fused(payload, rows, cols)
         self.device = payload.device
+        self.qos = channel.qos
+        self._stream = None
+        if self.qos is not None and payload.is_cuda:
+            self._stream = class_stream(self.device, *self.qos)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            payload.record_stream(self._stream)
+        with self._on_stream():
+            self.copy, self.sent = echo_fused(payload, rows, cols)
+        self._hand_back([(self.copy, self.sent)])
         self.nbytes = self.copy.numel() * 4
         self._lib = channel._lib
         self._method = method
@@ -160,7 +226,26 @@ class EchoPipeline:
         self._mapped = None if addrs is None else {
             id(buf): a for buf, a in zip(resp_bufs, addrs)}
         self._landed = _landed_vars()
+        self._tenant = None if self.qos is None else _tenant_vars(
+            self.qos[0])
+        self._wait_ns = 0  # reuse waits not yet added to the tenant gauge
         self._pipe = channel.pipeline()
+
+    def _on_stream(self):
+        """The class stream as the current stream (a no-op untagged)."""
+        return _NO_STREAM if self._stream is None else torch.cuda.stream(
+            self._stream)
+
+    def _hand_back(self, pairs) -> None:
+        """Makes the tensors of `pairs`, written on the class stream, safe
+        on the caller's current stream."""
+        if self._stream is None:
+            return
+        caller = torch.cuda.current_stream(self.device)
+        caller.wait_stream(self._stream)
+        for pair in pairs:
+            for t in pair:
+                t.record_stream(caller)
 
     @property
     def inflight(self) -> int:
@@ -170,7 +255,9 @@ class EchoPipeline:
         buf, copied = self._free.pop()
         with span("trpc.echo.reuse_wait"):
             if copied is not None:
+                t0 = time.perf_counter_ns()
                 copied.synchronize()  # what read it (copy or launch) is done
+                self._wait_ns += time.perf_counter_ns() - t0
         return buf
 
     def submit(self, k: int) -> None:
@@ -178,12 +265,17 @@ class EchoPipeline:
         if k > len(self._free):
             raise ValueError(f"{k} calls but {len(self._free)} free "
                              "landing buffers")
-        with span("trpc.echo.submit"):
+        with span("trpc.echo.submit"), self._on_stream():
+            synced = zerocopy.synced_ns()
             bufs = [self._take() for _ in range(k)]
             tokens = self._pipe.submit(self._method, [self.copy] * k,
                                        resp_bufs=bufs,
                                        timeout_ms=self._timeout_ms)
             self._inflight.update(zip(tokens, bufs))
+            self._wait_ns += zerocopy.synced_ns() - synced
+        if self._tenant is not None and self._wait_ns >= 1000:
+            self._tenant[1].add(self._wait_ns // 1000)
+        self._wait_ns %= 1000
 
     def poll(self, max_n: int = 64, timeout_ms: int = -1):
         """[(echoed uint32 tensor on the payload's device, its K1 checksum
@@ -213,10 +305,16 @@ class EchoPipeline:
             return [], error
         total, batched = self._landed
         total.add(len(landed))
-        if self._mapped is None:
-            return [self._land(buf) for buf in landed], error
-        batched.add(len(landed))
-        return self._land_batched(landed), error
+        if self._tenant is not None:
+            self._tenant[0].add(len(landed))
+        with self._on_stream():
+            if self._mapped is None:
+                out = made = [self._land(buf) for buf in landed]
+            else:
+                batched.add(len(landed))
+                out, made = self._land_batched(landed)
+        self._hand_back(made)
+        return out, error
 
     def _land(self, buf):
         """One call's response: an H2D copy, its event, K1."""
@@ -236,7 +334,8 @@ class EchoPipeline:
 
     def _land_batched(self, bufs):
         """A poll's responses read in place by one launch per 64 calls,
-        and one event after it for every buffer read."""
+        and one event after it for every buffer read; returns the pairs,
+        and as a pair the two tensors they view."""
         addrs = []
         for buf in bufs:
             with span("trpc.echo.land"):
@@ -251,7 +350,7 @@ class EchoPipeline:
             with span("trpc.echo.check"):
                 self._free.append((buf, read))
                 out.append((back, got))
-        return out
+        return out, [(backs, sums)]
 
     def close(self) -> None:
         self._pipe.close()

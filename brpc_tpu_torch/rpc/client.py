@@ -45,6 +45,11 @@ class DeadlineExpiredError(RpcError):
     ClusterChannel stops its attempt chain on it."""
 
 
+def _qos_tag(tenant: str, priority: int) -> tuple[str, int] | None:
+    """A channel's remembered QoS tag: None for the default ("", 0)."""
+    return (tenant, int(priority)) if tenant or priority else None
+
+
 def make_rpc_error(lib, code: int, text: str) -> RpcError:
     """The typed error for a failed call's status code — OverloadedError
     for an admission-control shed, DrainingError for a graceful leave,
@@ -111,6 +116,16 @@ class _BatchMixin:
 
     _default_batch = None
     _pipelines = None
+    _qos = None
+
+    @property
+    def qos(self) -> tuple[str, int] | None:
+        """The QoS tag this channel's calls carry, `(tenant, priority)`, as
+        given to the constructor or `set_qos`; None when none was set (or
+        the default `("", 0)` was).  Layers above the channel read a call's
+        class from it: `EchoPipeline` runs a tagged class on its own CUDA
+        stream."""
+        return self._qos
 
     def pipeline(self) -> "_batch.Batch":
         """A dedicated submit/poll pipeline over this channel."""
@@ -220,6 +235,7 @@ class Channel(_BatchMixin):
         raises OverloadedError."""
         self._lib.trpc_channel_set_qos(self._ptr, tenant.encode(),
                                        int(priority))
+        self._qos = _qos_tag(tenant, priority)
 
     def call(self, method: str, request: bytes, timeout_ms: int = 0) -> bytes:
         return _call(self._lib, self._lib.trpc_channel_call, self._ptr,
@@ -284,6 +300,7 @@ class ClusterChannel(_BatchMixin):
         code) fails over to a different node inside the same call."""
         self._lib.trpc_cluster_set_qos(self._ptr, tenant.encode(),
                                        int(priority))
+        self._qos = _qos_tag(tenant, priority)
 
     def call(self, method: str, request: bytes, hash_key: int = 0,
              hint: str = "") -> bytes:
