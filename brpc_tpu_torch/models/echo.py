@@ -17,6 +17,7 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -35,30 +36,42 @@ from brpc_tpu_torch.rpc.observe import Gauge, span
 from brpc_tpu_torch.transport.ici import IciTransport, _ring_perm
 
 #: Process-wide counters in /vars: calls that EchoPipelines landed, and
-#: those of them landed by the batched launch (`echo_land_batch`).
+#: those of them landed by the batched launch (`echo_land_batch`); calls
+#: they submitted, and those of them whose request the runtime copied in
+#: the crossing (`PreparedSubmit.copied`); D2H stagings of a pipeline's
+#: request, one for each pipeline on a card.
 LANDED = "trpc_echo_landed"
 LANDED_BATCHED = "trpc_echo_landed_batched"
+SUBMITTED = "trpc_echo_submitted"
+SUBMITTED_COPIED = "trpc_echo_submitted_copied"
+STAGED = "trpc_echo_staged"
 #: Per-tenant counters in /vars of pipelines whose channel carries a QoS
-#: tag: calls landed, and host microseconds their submits spent blocked on
-#: device work (`.format(tenant)`).
+#: tag: calls landed, and host microseconds their constructors and submits
+#: spent blocked on device work (`.format(tenant)`).
 TENANT_LANDED = "trpc_echo_{}_landed"
 TENANT_DEVICE_WAIT_US = "trpc_echo_{}_device_wait_us"
+_EchoVars = collections.namedtuple(
+    "_EchoVars", "landed landed_batched submitted submitted_copied staged")
 _landed_lock = threading.Lock()
-_landed = None
+_echo = None
 _tenants: dict = {}  # tenant -> (landed, device_wait_us) gauges
 _streams: dict = {}  # (device index, tenant, priority) -> its class stream
 _NO_STREAM = contextlib.nullcontext()
 
 
-def _landed_vars():
-    global _landed
+def _echo_vars() -> _EchoVars:
+    global _echo
     with _landed_lock:
-        if _landed is None:
-            _landed = (
+        if _echo is None:
+            _echo = _EchoVars(
                 Gauge(LANDED, "calls that echo pipelines landed"),
                 Gauge(LANDED_BATCHED, "calls that echo pipelines landed "
-                      "through the batched in-place launch"))
-    return _landed
+                      "through the batched in-place launch"),
+                Gauge(SUBMITTED, "calls that echo pipelines submitted"),
+                Gauge(SUBMITTED_COPIED, "calls that echo pipelines "
+                      "submitted whose request the runtime copied"),
+                Gauge(STAGED, "D2H stagings of echo pipelines' requests"))
+    return _echo
 
 
 def _tenant_vars(tenant: str):
@@ -135,11 +148,17 @@ class EchoPipeline:
     bench.py's batch goodput leg.
 
     On the payload's device, one fused pass (K1, `echo_fused`) makes the
-    response copy and the sent checksum once.  `submit(k)` puts k calls of
-    that copy on a batch pipeline over `channel` (one D2H copy into pinned
-    memory per submit for a GPU payload), each response landing in one of
-    the caller's `resp_bufs` (any `Batch.submit` takes: CPU tensors, pinned
-    for a GPU payload, or `RmaBuffer`s, CUDA-registered for a GPU payload).
+    response copy and the sent checksum once, and the constructor prepares
+    the submit of that copy once (`Batch.prepare`): a copy on a card is
+    staged to pinned host memory with one D2H copy and one synchronise, a
+    CPU copy is sent from its own memory.  A pipeline sends the bytes
+    `copy` held at construction.  `submit(k)` puts k calls of it on a
+    batch pipeline over `channel` in one crossing, each response landing
+    in one of the caller's `resp_bufs` (any `Batch.submit` takes: CPU
+    tensors, pinned for a GPU payload, or `RmaBuffer`s, CUDA-registered
+    for a GPU payload).  At or below `batch.COPY_REQUEST_MAX` bytes the
+    runtime copies the request into each call; above it each call
+    references the staged bytes, with a pin and a deleter.
     `poll()` drains completions with the GIL released and lands them on
     the device, returning (echoed tensor, echoed checksum) pairs, in one
     of two ways that the pipeline picks once, in its constructor, from
@@ -162,32 +181,37 @@ class EchoPipeline:
     a tag (tenant, priority) and the payload is on a card, every device op
     of the pipeline runs on the class's stream (`class_stream`; lane 0 at
     the highest priority): K1's copy in the constructor (after the caller's
-    current stream, which made the payload), the staging D2H of each
-    submit, so that its synchronise waits on this class's work only, the
-    per-call H2D and K1, the batched launch, and every landing-buffer
-    event.  What the constructor and `poll` hand back is safe on the
-    caller's current stream: that stream waits on the class stream's work
-    so far, and `record_stream` keeps the tensors' blocks from the
-    allocator until it is done with them.  An untagged pipeline runs on
+    current stream, which made the payload), the staging D2H, so that its
+    synchronise waits on this class's work only, the per-call H2D and K1,
+    the batched launch, and every landing-buffer event.  What the
+    constructor and `poll` hand back is safe on the caller's current
+    stream: that stream waits on the class stream's work so far, and
+    `record_stream` keeps the tensors' blocks from the allocator until it
+    is done with them.  An untagged pipeline runs on
     the caller's current stream.  A tagged pipeline also adds to its
     tenant's gauges `trpc_echo_<tenant>_landed` and
     `trpc_echo_<tenant>_device_wait_us` (the event synchronises of
-    `reuse_wait` and the staging synchronise, host microseconds; a poll
-    blocks on none).
+    `reuse_wait` and the constructor's staging synchronise, host
+    microseconds; a poll blocks on none).
 
     A landing buffer goes back to the free list with its event and is
-    reused only once that event has completed.  A failed member raises
-    its typed error once the rest of the drained completions are
-    accounted for; its landing buffer is retired, never reused, since a
-    late server-side put may still reach an RmaBuffer.  `rows`/`cols` are
+    reused only once that event has completed: a submit synchronises each
+    distinct event of the buffers it takes once (on the batched path a
+    poll's buffers share one).  A failed member raises its typed error
+    once the rest of the drained completions are accounted for; its
+    landing buffer is retired, never reused, since a late server-side put
+    may still reach an RmaBuffer.  `rows`/`cols` are
     echo_fused's tile contract (a 1 KiB payload passes rows=1, cols=256).
     The process-wide gauges `trpc_echo_landed` and
     `trpc_echo_landed_batched` count the calls landed, and those landed
-    batched.
+    batched; `trpc_echo_submitted` and `trpc_echo_submitted_copied` the
+    calls submitted, and those whose request the runtime copied;
+    `trpc_echo_staged` the D2H stagings.
 
     Under a torch profiler each step is a span (`observe.span`):
-    `trpc.echo.submit` holds `trpc.echo.reuse_wait` (a buffer's earlier
-    landing read) and the batch's `trpc.batch.stage`/`.issue`;
+    `trpc.echo.submit` holds `trpc.echo.reuse_wait` (the taken buffers'
+    earlier landing reads) and the prepared submit's
+    `trpc.batch.stage`/`.issue`;
     `trpc.echo.poll` holds `trpc.batch.wait` and, per completion,
     `trpc.echo.land` and `trpc.echo.check`: per call the H2D copy and
     its event, then K1 on the landed copy; batched the call's landing
@@ -205,31 +229,37 @@ class EchoPipeline:
             self._stream = class_stream(self.device, *self.qos)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             payload.record_stream(self._stream)
-        with self._on_stream():
-            self.copy, self.sent = echo_fused(payload, rows, cols)
-        self._hand_back([(self.copy, self.sent)])
-        self.nbytes = self.copy.numel() * 4
-        self._lib = channel._lib
-        self._method = method
-        self._timeout_ms = timeout_ms
-        hosts = []
-        for buf in resp_bufs:
-            view = _landing_bytes(buf)
-            if view.size < self.nbytes:
+        self._vars = _echo_vars()
+        self._tenant = None if self.qos is None else _tenant_vars(
+            self.qos[0])
+        self._pipe = channel.pipeline()
+        synced = zerocopy.synced_ns()
+        try:
+            with self._on_stream():
+                self.copy, self.sent = echo_fused(payload, rows, cols)
+                self._prep = self._pipe.prepare(method, self.copy, resp_bufs,
+                                                timeout_ms)
+            self.nbytes = self.copy.numel() * 4
+            if any(cap < self.nbytes for _, cap in self._prep.landing):
                 raise ValueError(f"a landing buffer is smaller than the "
                                  f"{self.nbytes}-byte response")
-            hosts.append(view.ctypes.data)
+        except BaseException:
+            self._pipe.close()
+            raise
+        self._hand_back([(self.copy, self.sent)])
+        # device waits not yet in the tenant gauge: here the staging's
+        self._wait_ns = zerocopy.synced_ns() - synced
+        if self.copy.device.type == "cuda":
+            self._vars.staged.add(1)
+        self._lib = channel._lib
         self._free = [(buf, None) for buf in resp_bufs]
         self._inflight: dict[int, object] = {}
-        addrs = batched_landing(self.device, self.nbytes, hosts)
+        addrs = batched_landing(self.device, self.nbytes,
+                                [a for a, _ in self._prep.landing])
         # id(landing buffer) -> its device address, where poll lands batched
         self._mapped = None if addrs is None else {
             id(buf): a for buf, a in zip(resp_bufs, addrs)}
-        self._landed = _landed_vars()
-        self._tenant = None if self.qos is None else _tenant_vars(
-            self.qos[0])
-        self._wait_ns = 0  # reuse waits not yet added to the tenant gauge
-        self._pipe = channel.pipeline()
+        self._add_wait()
 
     def _on_stream(self):
         """The class stream as the current stream (a no-op untagged)."""
@@ -251,31 +281,38 @@ class EchoPipeline:
     def inflight(self) -> int:
         return len(self._inflight)
 
-    def _take(self):
-        buf, copied = self._free.pop()
-        with span("trpc.echo.reuse_wait"):
-            if copied is not None:
-                t0 = time.perf_counter_ns()
-                copied.synchronize()  # what read it (copy or launch) is done
-                self._wait_ns += time.perf_counter_ns() - t0
-        return buf
+    def _add_wait(self) -> None:
+        """Whole microseconds of device waits to the tenant's gauge."""
+        if self._tenant is not None and self._wait_ns >= 1000:
+            self._tenant[1].add(self._wait_ns // 1000)
+        self._wait_ns %= 1000
 
     def submit(self, k: int) -> None:
         """Puts k more calls in flight; needs k free landing buffers."""
         if k > len(self._free):
             raise ValueError(f"{k} calls but {len(self._free)} free "
                              "landing buffers")
-        with span("trpc.echo.submit"), self._on_stream():
-            synced = zerocopy.synced_ns()
-            bufs = [self._take() for _ in range(k)]
-            tokens = self._pipe.submit(self._method, [self.copy] * k,
-                                       resp_bufs=bufs,
-                                       timeout_ms=self._timeout_ms)
+        if k <= 0:
+            return
+        with span("trpc.echo.submit"):
+            cut = len(self._free) - k
+            taken = self._free[cut:]
+            del self._free[cut:]
+            with span("trpc.echo.reuse_wait"):
+                # what read them (a copy or a launch) is done
+                events = {id(e): e for _, e in taken if e is not None}
+                if events:
+                    t0 = time.perf_counter_ns()
+                    for event in events.values():
+                        event.synchronize()
+                    self._wait_ns += time.perf_counter_ns() - t0
+            bufs = [buf for buf, _ in taken]
+            tokens = self._prep.submit(bufs)
             self._inflight.update(zip(tokens, bufs))
-            self._wait_ns += zerocopy.synced_ns() - synced
-        if self._tenant is not None and self._wait_ns >= 1000:
-            self._tenant[1].add(self._wait_ns // 1000)
-        self._wait_ns %= 1000
+        self._vars.submitted.add(k)
+        if self._prep.copied:
+            self._vars.submitted_copied.add(k)
+        self._add_wait()
 
     def poll(self, max_n: int = 64, timeout_ms: int = -1):
         """[(echoed uint32 tensor on the payload's device, its K1 checksum
@@ -303,15 +340,14 @@ class EchoPipeline:
             landed.append(buf)
         if not landed:
             return [], error
-        total, batched = self._landed
-        total.add(len(landed))
+        self._vars.landed.add(len(landed))
         if self._tenant is not None:
             self._tenant[0].add(len(landed))
         with self._on_stream():
             if self._mapped is None:
                 out = made = [self._land(buf) for buf in landed]
             else:
-                batched.add(len(landed))
+                self._vars.landed_batched.add(len(landed))
                 out, made = self._land_batched(landed)
         self._hand_back(made)
         return out, error

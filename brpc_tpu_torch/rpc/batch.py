@@ -36,6 +36,16 @@ Tensors at the boundary:
   back with one H2D DMA) or an `rma.RmaBuffer`.
 - `ZeroCopyResponse.tensor()` is a uint8 CPU tensor over the response; it
   keeps the response alive as `view()` does.
+
+One fixed request, many times (`Batch.prepare`): a caller that sends the
+same bytes into a fixed set of landing buffers, call after call, prepares
+that once — the request's host bytes (one D2H copy, for a CUDA tensor),
+every landing buffer's address and capacity, and the argument arrays of the
+native submit — and each submit then fills the landing slots and crosses
+once.  At or below COPY_REQUEST_MAX bytes the runtime copies the request
+into each call inside that crossing, with the GIL released: no pin and no
+deleter.  Above it each call takes the staged bytes by reference, pinned
+with the deleter as above.
 """
 
 from __future__ import annotations
@@ -63,6 +73,10 @@ from brpc_tpu_torch.rpc.rma import RmaBuffer
 #: the poll's return.
 DRAINED = "rpc_client_batch_drained"
 HELD_US = "rpc_client_batch_held_us"
+#: The largest request a prepared submit has the runtime copy into each
+#: call (a native memcpy in the crossing) rather than send by reference
+#: (a pin, and a deleter that takes the GIL on a native thread, per call).
+COPY_REQUEST_MAX = 16 << 10
 _queue_lock = threading.Lock()
 _queue = None
 
@@ -244,7 +258,9 @@ class Batch:
     staging), `trpc.batch.issue` (the native submit) and `trpc.batch.wait`
     (the native poll, GIL released).  Each poll that drains adds to the
     process-wide `rpc_client_batch_drained` and `_held_us` (one clock
-    reading a submit and one a poll)."""
+    reading a submit and one a poll).  `prepare` hands out a
+    `PreparedSubmit`, the submit of one fixed request, on the same
+    pipeline."""
 
     def __init__(self, channel, is_cluster: bool | None = None):
         self._lib = load_library()
@@ -258,6 +274,7 @@ class Batch:
         if not self._ptr:
             raise ValueError("batch over a closed channel")
         self._resp_pins: dict[int, object] = {}
+        self._prepared_bufs: list = []  # landing buffers of prepare()
         self._issued: dict[int, int] = {}  # token -> submit, monotonic ns
         self._queue = _queue_vars()
         # Serializes submit/cancel/introspection against close, and
@@ -350,6 +367,20 @@ class Batch:
             for t, pin in zip(landed, resp_views):
                 self._resp_pins[t] = pin
         return out
+
+    def prepare(self, method: str, request, resp_bufs,
+                timeout_ms: int = 0) -> "PreparedSubmit":
+        """A prepared submit of `request` (what `submit` takes as one
+        request; a CUDA tensor is copied to the host here, once) into
+        `resp_bufs`, for callers that send the same bytes call after call.
+        The request's bytes are those it holds now.  The batch keeps the
+        landing buffers alive until it closes."""
+        if not self._ptr:
+            raise ValueError("batch is closed")
+        prep = PreparedSubmit(self, method, request, resp_bufs, timeout_ms)
+        with self._lock:
+            self._prepared_bufs.append(tuple(resp_bufs))
+        return prep
 
     def poll(self, max_n: int = 64, timeout_ms: int = -1) -> list[Completion]:
         """Drains up to max_n completions, blocking OUTSIDE the GIL until
@@ -452,6 +483,7 @@ class Batch:
             # what keeps a caller-dropped landing buffer alive, and an
             # in-flight completion memcpys into it natively.
             self._resp_pins.clear()
+            self._prepared_bufs.clear()
             self._issued.clear()
         self._channel = None
 
@@ -460,6 +492,91 @@ class Batch:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter teardown
             pass
+
+
+class PreparedSubmit:
+    """Calls of one fixed request into a fixed set of landing buffers,
+    from `Batch.prepare`: what every submit repeats is worked out once —
+    the request's host bytes, each landing buffer's address and capacity
+    (`landing`, in `resp_bufs` order), and the native submit's argument
+    arrays, one slot per landing buffer.
+
+    `copied` is the size rule: at or below COPY_REQUEST_MAX bytes the
+    runtime copies the request into each call inside the crossing, with no
+    pin and no deleter; above it each call references the staged bytes,
+    pinned until the runtime drops them, as `Batch.submit`'s requests are.
+    One thread submits at a time.  Spans as `Batch.submit`'s:
+    `trpc.batch.stage` (the landing slots filled, a pin a call by
+    reference) and `trpc.batch.issue` (the native submit)."""
+
+    def __init__(self, batch: Batch, method: str, request, resp_bufs,
+                 timeout_ms: int):
+        flat, owner = _request_bytes(request, {})
+        self._owners = (flat, owner)
+        self.nbytes = flat.nbytes
+        self.copied = self.nbytes <= COPY_REQUEST_MAX
+        self.landing = []
+        for buf in resp_bufs:
+            v = _landing_bytes(buf)
+            self.landing.append((v.ctypes.data, v.nbytes))
+        self._slots = {id(b): s for b, s in zip(resp_bufs, self.landing)}
+        n = len(self.landing)
+        req = flat.ctypes.data if self.nbytes else None
+        self._reqs = (ctypes.c_void_p * n)(*[req] * n)
+        self._lens = (ctypes.c_size_t * n)(*[self.nbytes] * n)
+        self._rb = (ctypes.c_void_p * n)()
+        self._rc = (ctypes.c_size_t * n)()
+        self._tokens = (ctypes.c_uint64 * n)()
+        self._ctxs = self._deleter = None
+        if not self.copied:
+            self._ctxs = (ctypes.c_void_p * n)()
+            self._deleter = ctypes.cast(_zc.release_cb, ctypes.c_void_p)
+        self._batch = batch
+        self._method = method.encode()
+        self._timeout_ms = timeout_ms
+
+    def submit(self, bufs) -> list[int]:
+        """One call into each of `bufs` (landing buffers given to
+        `prepare`, each free for a response) in ONE crossing; returns the
+        tokens in order."""
+        k = len(bufs)
+        if k == 0:
+            return []
+        if k > len(self.landing):
+            raise ValueError(f"{k} calls but {len(self.landing)} landing "
+                             "buffers")
+        b = self._batch
+        pins = []
+        with span("trpc.batch.stage"):
+            rb, rc, slots = self._rb, self._rc, self._slots
+            try:
+                for i, buf in enumerate(bufs):
+                    rb[i], rc[i] = slots[id(buf)]
+            except KeyError:
+                raise ValueError("not a landing buffer of this prepared "
+                                 "submit") from None
+            if not self.copied:
+                for i in range(k):
+                    self._ctxs[i] = tok = _zc.pin(*self._owners)
+                    pins.append(tok)
+        with b._lock:  # as in Batch.submit: issue and _issued together
+            if not b._ptr:
+                for tok in pins:
+                    _zc.unpin(tok)
+                raise ValueError("batch is closed")
+            issued = time.monotonic_ns()
+            with span("trpc.batch.issue"):
+                got = b._lib.trpc_batch_submit(
+                    b._ptr, self._method, self._reqs, self._lens, rb, rc, k,
+                    self._timeout_ms, self._deleter, self._ctxs,
+                    self._tokens)
+            if got != k:
+                for tok in pins:  # nothing was issued; undo the pins
+                    _zc.unpin(tok)
+                raise RuntimeError("batch rejected the submit (closing?)")
+            out = self._tokens[:k]
+            b._issued.update(dict.fromkeys(out, issued))
+        return out
 
 
 def call_batch(channel, method: str, requests, resp_bufs=None,

@@ -107,14 +107,15 @@ def test_a_tagged_pipeline_runs_on_its_class_stream(card, addr):
         assert torch.cuda.current_stream(card) not in (fg._stream,
                                                        bulk._stream)
         _round(fg, 4)  # warm
-        # A kernel queued on the class's own stream holds its submit's
-        # staging synchronise (the D2H runs there) and its landing event.
+        # A kernel queued on the class's own stream holds the landing
+        # launch and event of the next round; the round after it takes
+        # those buffers, and its reuse wait synchronises that event.
         name = TENANT_DEVICE_WAIT_US.format("cardfg")
         waited = int(observe.Vars.read(name))
         with torch.cuda.stream(fg._stream):
             torch.cuda._sleep(_sleep_cycles(SLEEP_S))
         t0 = time.perf_counter()
-        out = _round(fg, 4)
+        out = _round(fg, 4) + _round(fg, 4)
         took = time.perf_counter() - t0
         assert took >= 0.8 * SLEEP_S
         assert int(observe.Vars.read(name)) - waited >= 0.8 * SLEEP_S * 1e6
@@ -123,6 +124,34 @@ def test_a_tagged_pipeline_runs_on_its_class_stream(card, addr):
         for p, c in ((fg, fg_ch), (bulk, bulk_ch), (plain, plain_ch)):
             p.close()
             c.close()
+
+
+def test_the_staging_synchronise_counts_once(card, addr):
+    """A tagged pipeline stages its request in its constructor, on its
+    class stream: a kernel queued there holds that one synchronise, which
+    the tenant's device wait counts; its submits stage nothing."""
+    from brpc_tpu_torch.models.echo import (STAGED, TENANT_DEVICE_WAIT_US,
+                                            class_stream)
+    from brpc_tpu_torch.rpc import observe
+
+    name = TENANT_DEVICE_WAIT_US.format("stagefg")
+    fg, fg_ch, _ = _pipe(addr, card, 1024, 8, "stagefg", 0)  # warm
+    fg.close()
+    fg_ch.close()
+    waited = int(observe.Vars.read(name))
+    staged = int(observe.Vars.read(STAGED))
+    with torch.cuda.stream(class_stream(card, "stagefg", 0)):
+        torch.cuda._sleep(_sleep_cycles(SLEEP_S))
+    fg, fg_ch, payload = _pipe(addr, card, 1024, 8, "stagefg", 0, seed=7)
+    try:
+        assert int(observe.Vars.read(name)) - waited >= 0.8 * SLEEP_S * 1e6
+        assert int(observe.Vars.read(STAGED)) - staged == 1
+        out = [pair for _ in range(4) for pair in _round(fg, 4)]
+        assert int(observe.Vars.read(STAGED)) - staged == 1
+        assert all(_same(b, payload) for b, _ in out)
+    finally:
+        fg.close()
+        fg_ch.close()
 
 
 @pytest.mark.parametrize("tagged", [True, False])

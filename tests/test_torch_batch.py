@@ -21,10 +21,13 @@ import brpc_tpu.rpc as ref
 import brpc_tpu_torch.rpc as port
 from brpc_tpu.ops.checksum import sum32 as jax_sum32
 from brpc_tpu_torch import payload_from_numpy
-from brpc_tpu_torch.models.echo import EchoPipeline, rpc_batch_echo_step
+from brpc_tpu_torch.models import echo as echo_mod
+from brpc_tpu_torch.models.echo import (STAGED, SUBMITTED, SUBMITTED_COPIED,
+                                        EchoPipeline, rpc_batch_echo_step)
 from brpc_tpu_torch.ops.echo_kernel import _BLOCK
 from brpc_tpu_torch.rpc import batch as port_batch
-from brpc_tpu_torch.rpc import zerocopy
+from brpc_tpu_torch.rpc import observe, zerocopy
+from brpc_tpu_torch.rpc.batch import COPY_REQUEST_MAX
 
 PKGS = {"reference": ref, "port": port}
 
@@ -598,3 +601,140 @@ def test_echo_pipeline_failure_mid_poll(second_fails_server, landing,
         if landing == "rma":
             for b in bufs:
                 b.free()
+
+
+def _echo_counts() -> dict:
+    out = {}
+    for name in (SUBMITTED, SUBMITTED_COPIED, STAGED):
+        try:
+            out[name] = int(observe.Vars.read(name))
+        except KeyError:
+            out[name] = 0
+    return out
+
+
+@pytest.mark.parametrize("nbytes", [1024, COPY_REQUEST_MAX,
+                                    COPY_REQUEST_MAX + 4, 1 << 20])
+def test_prepared_submit_by_request_size(server, monkeypatch, nbytes):
+    """EchoPipeline's prepared submit: echoes bit-exact at every size; at
+    or below COPY_REQUEST_MAX the runtime copies each request (no pin, the
+    copied gauge rises by every call), above it one pin a call, drained
+    once the calls complete."""
+    pinned = []
+    real_pin = zerocopy.pin
+    monkeypatch.setattr(zerocopy, "pin",
+                        lambda *objs: pinned.append(objs) or real_pin(*objs))
+    lanes = nbytes // 4
+    arr = np.random.default_rng(nbytes).integers(0, 1 << 32, size=lanes,
+                                                 dtype=np.uint32)
+    payload = payload_from_numpy(arr, "cpu")
+    ch = port.Channel(f"127.0.0.1:{server.port}", timeout_ms=10000)
+    bufs = [torch.empty(nbytes, dtype=torch.uint8) for _ in range(4)]
+    assert _drained()
+    before = _echo_counts()
+    pipe = EchoPipeline(ch, payload, bufs, method="Echo.Native", rows=1,
+                        cols=lanes)
+    copied = nbytes <= COPY_REQUEST_MAX
+    echoed = []
+    try:
+        assert pipe._prep.copied == copied
+        for _ in range(3):
+            assert _drained()  # the last round's requests are dropped
+            pipe.submit(4)
+            # in flight: a request the runtime copied holds no pin
+            assert port_batch.pinned_requests() == (0 if copied else 4)
+            while pipe.inflight:
+                got = pipe.poll(max_n=4, timeout_ms=10000)
+                assert got, "wedged"
+                echoed += got
+    finally:
+        pipe.close()
+        ch.close()
+    assert _drained()
+    assert len(pinned) == (0 if copied else 12)
+    moved = {n: v - before[n] for n, v in _echo_counts().items()}
+    assert moved == {SUBMITTED: 12, SUBMITTED_COPIED: 12 if copied else 0,
+                     STAGED: 0}
+    want = int(jax_sum32(jnp.asarray(arr)))
+    assert len(echoed) == 12
+    for back, got in echoed:
+        assert int(got) == want
+        np.testing.assert_array_equal(
+            back.view(torch.int32).numpy().view(np.uint32), arr)
+
+
+def test_a_pipeline_stages_its_gpu_request_once(server, monkeypatch):
+    """A request on a card is copied to the host once, in the pipeline's
+    constructor, whatever the number of submits after it."""
+    staged = []
+
+    def host_view(tensor):
+        staged.append(tensor)
+        flat = torch.Tensor.contiguous(tensor).reshape(-1).view(torch.uint8)
+        host = flat.as_subclass(torch.Tensor).clone()
+        return host.numpy(), host
+
+    monkeypatch.setattr(zerocopy, "host_view", host_view)
+    # K1 and the landing query need the card: the copy is the payload.
+    monkeypatch.setattr(echo_mod, "echo_fused",
+                        lambda p, rows, cols: (p, torch.zeros(())))
+    monkeypatch.setattr(echo_mod, "batched_landing", lambda *a: None)
+    arr = np.arange(256, dtype=np.int32) * 7
+    payload = torch.from_numpy(arr).as_subclass(_FakeCuda)
+    ch = port.Channel(f"127.0.0.1:{server.port}", timeout_ms=10000)
+    bufs = [torch.empty(1024, dtype=torch.uint8) for _ in range(6)]
+    before = _echo_counts()
+    pipe = EchoPipeline(ch, payload, bufs, method="Echo.Native", rows=1,
+                        cols=256)
+    try:
+        assert len(staged) == 1
+        for _ in range(3):
+            pipe.submit(2)
+        done = _poll_all(pipe._pipe, 6)  # the batch's own completions
+        assert all(c.ok and c.in_caller_buffer for c in done.values())
+    finally:
+        pipe.close()
+        ch.close()
+    assert len(staged) == 1
+    moved = {n: v - before[n] for n, v in _echo_counts().items()}
+    assert moved == {SUBMITTED: 6, SUBMITTED_COPIED: 6, STAGED: 1}
+    for buf in bufs:
+        np.testing.assert_array_equal(buf.view(torch.int32).numpy(), arr)
+
+
+class _StubEvent:
+    """A landing event's surface: counts its synchronises."""
+
+    def __init__(self):
+        self.waited = 0
+
+    def synchronize(self):
+        self.waited += 1
+
+
+def test_a_submit_synchronises_each_landing_event_once(server):
+    """Buffers that share an event (a batched poll's) cost its submit one
+    synchronise, not one a buffer."""
+    arr = np.arange(256, dtype=np.uint32)
+    ch = port.Channel(f"127.0.0.1:{server.port}", timeout_ms=10000)
+    bufs = [torch.empty(1024, dtype=torch.uint8) for _ in range(8)]
+    pipe = EchoPipeline(ch, payload_from_numpy(arr, "cpu"), bufs,
+                        method="Echo.Native", rows=1, cols=256)
+    first, second = _StubEvent(), _StubEvent()
+    pipe._free = ([(b, first) for b in bufs[:4]]
+                  + [(b, second) for b in bufs[4:]])
+    try:
+        pipe.submit(6)  # two buffers behind `first`, four behind `second`
+        assert (first.waited, second.waited) == (1, 1)
+        pipe.submit(2)
+        assert (first.waited, second.waited) == (2, 1)
+        echoed = []
+        while pipe.inflight:
+            got = pipe.poll(max_n=8, timeout_ms=10000)
+            assert got, "wedged"
+            echoed += got
+    finally:
+        pipe.close()
+        ch.close()
+    assert len(echoed) == 8
+    assert all(int(g) == int(pipe.sent) for _, g in echoed)
