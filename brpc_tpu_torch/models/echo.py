@@ -30,7 +30,6 @@ from brpc_tpu_torch.ops.echo_kernel import (_COLS, _ROWS, batched_landing,
 from brpc_tpu_torch.parallel import collectives as coll
 from brpc_tpu_torch.parallel.fabric import Fabric, P
 from brpc_tpu_torch.rpc import zerocopy
-from brpc_tpu_torch.rpc.batch import _landing_bytes
 from brpc_tpu_torch.rpc.client import make_rpc_error
 from brpc_tpu_torch.rpc.observe import Gauge, span
 from brpc_tpu_torch.transport.ici import IciTransport, _ring_perm
@@ -191,8 +190,8 @@ class EchoPipeline:
     the caller's current stream.  A tagged pipeline also adds to its
     tenant's gauges `trpc_echo_<tenant>_landed` and
     `trpc_echo_<tenant>_device_wait_us` (the event synchronises of
-    `reuse_wait` and the constructor's staging synchronise, host
-    microseconds; a poll blocks on none).
+    `reuse_wait` and the constructor's staging, its D2H and synchronise,
+    host microseconds; a poll blocks on none).
 
     A landing buffer goes back to the free list with its event and is
     reused only once that event has completed: a submit synchronises each
@@ -233,7 +232,6 @@ class EchoPipeline:
         self._tenant = None if self.qos is None else _tenant_vars(
             self.qos[0])
         self._pipe = channel.pipeline()
-        synced = zerocopy.synced_ns()
         try:
             with self._on_stream():
                 self.copy, self.sent = echo_fused(payload, rows, cols)
@@ -248,8 +246,8 @@ class EchoPipeline:
             raise
         self._hand_back([(self.copy, self.sent)])
         # device waits not yet in the tenant gauge: here the staging's
-        self._wait_ns = zerocopy.synced_ns() - synced
-        if self.copy.device.type == "cuda":
+        self._wait_ns = self._prep.staged_wait_ns
+        if self._prep.staged:
             self._vars.staged.add(1)
         self._lib = channel._lib
         self._free = [(buf, None) for buf in resp_bufs]
@@ -356,7 +354,7 @@ class EchoPipeline:
         """One call's response: an H2D copy, its event, K1."""
         with span("trpc.echo.land"):
             landed = torch.from_numpy(
-                _landing_bytes(buf)[:self.nbytes]).view(torch.int32)
+                self._prep.landed(buf, self.nbytes)).view(torch.int32)
             back = landed.to(self.device, non_blocking=True, copy=True)
             copied = None
             if back.is_cuda:

@@ -274,7 +274,7 @@ class Batch:
         if not self._ptr:
             raise ValueError("batch over a closed channel")
         self._resp_pins: dict[int, object] = {}
-        self._prepared_bufs: list = []  # landing buffers of prepare()
+        self._prepared: list = []  # prepare()'s, with their buffers
         self._issued: dict[int, int] = {}  # token -> submit, monotonic ns
         self._queue = _queue_vars()
         # Serializes submit/cancel/introspection against close, and
@@ -316,11 +316,10 @@ class Batch:
                 v = _landing_bytes(buf)
                 rb[i] = v.ctypes.data
                 rc[i] = v.nbytes
-                resp_views.append((v, buf))
+                resp_views.append((i, (v, buf)))
         req_ptrs = (ctypes.c_void_p * n)()
         req_lens = (ctypes.c_size_t * n)()
         pin_ctxs = (ctypes.c_void_p * n)()
-        tokens = (ctypes.c_uint64 * n)()
         pins = []
         staged: dict[int, tuple] = {}
         try:
@@ -338,6 +337,19 @@ class Batch:
             for tok in pins:  # a bad request mid-loop must not leak pins
                 _zc.unpin(tok)
             raise
+        return self._issue(method.encode(), req_ptrs, req_lens, rb, rc, n,
+                           timeout_ms,
+                           ctypes.cast(_zc.release_cb, ctypes.c_void_p),
+                           pin_ctxs, (ctypes.c_uint64 * n)(), pins,
+                           resp_views)
+
+    def _issue(self, method: bytes, reqs, lens, rb, rc, k: int,
+               timeout_ms: int, deleter, ctxs, tokens, pins,
+               resp_views=()) -> list[int]:
+        """The native submit of k calls from their filled argument arrays;
+        returns the tokens.  `pins` are the requests' pin tokens, dropped
+        when nothing was issued; `resp_views` are (index of a call, what
+        keeps its landing buffer alive until its completion is polled)."""
         # self._lock is held across the native submit AND the pin
         # insertion: tokens are only known once submit returns, and a
         # concurrent poller that drained a completion in that window
@@ -352,20 +364,16 @@ class Batch:
             issued = time.monotonic_ns()
             with span("trpc.batch.issue"):
                 got = self._lib.trpc_batch_submit(
-                    self._ptr, method.encode(), req_ptrs, req_lens, rb, rc,
-                    n, timeout_ms,
-                    ctypes.cast(_zc.release_cb, ctypes.c_void_p), pin_ctxs,
-                    tokens)
-            if got != n:
+                    self._ptr, method, reqs, lens, rb, rc, k, timeout_ms,
+                    deleter, ctxs, tokens)
+            if got != k:
                 for tok in pins:  # nothing was issued; undo the pins
                     _zc.unpin(tok)
                 raise RuntimeError("batch rejected the submit (closing?)")
-            out = list(tokens)
+            out = tokens[:k]
             self._issued.update(dict.fromkeys(out, issued))
-            landed = (t for i, t in enumerate(out)
-                      if resp_bufs is not None and resp_bufs[i] is not None)
-            for t, pin in zip(landed, resp_views):
-                self._resp_pins[t] = pin
+            for i, pin in resp_views:
+                self._resp_pins[out[i]] = pin
         return out
 
     def prepare(self, method: str, request, resp_bufs,
@@ -374,12 +382,13 @@ class Batch:
         request; a CUDA tensor is copied to the host here, once) into
         `resp_bufs`, for callers that send the same bytes call after call.
         The request's bytes are those it holds now.  The batch keeps the
-        landing buffers alive until it closes."""
+        prepared submit, and with it the landing buffers, until it
+        closes."""
         if not self._ptr:
             raise ValueError("batch is closed")
         prep = PreparedSubmit(self, method, request, resp_bufs, timeout_ms)
         with self._lock:
-            self._prepared_bufs.append(tuple(resp_bufs))
+            self._prepared.append(prep)
         return prep
 
     def poll(self, max_n: int = 64, timeout_ms: int = -1) -> list[Completion]:
@@ -483,7 +492,7 @@ class Batch:
             # what keeps a caller-dropped landing buffer alive, and an
             # in-flight completion memcpys into it natively.
             self._resp_pins.clear()
-            self._prepared_bufs.clear()
+            self._prepared.clear()
             self._issued.clear()
         self._channel = None
 
@@ -498,9 +507,12 @@ class PreparedSubmit:
     """Calls of one fixed request into a fixed set of landing buffers,
     from `Batch.prepare`: what every submit repeats is worked out once —
     the request's host bytes, each landing buffer's address and capacity
-    (`landing`, in `resp_bufs` order), and the native submit's argument
-    arrays, one slot per landing buffer.
+    (`landing`, in `resp_bufs` order) and flat view (`landed`), and the
+    native submit's argument arrays, one slot per landing buffer.
 
+    `staged` is True when the request was a CUDA tensor, copied to pinned
+    host memory here (one D2H and a synchronise of its stream), and
+    `staged_wait_ns` the host nanoseconds that staging took (0 unstaged).
     `copied` is the size rule: at or below COPY_REQUEST_MAX bytes the
     runtime copies the request into each call inside the crossing, with no
     pin and no deleter; above it each call references the staged bytes,
@@ -511,15 +523,20 @@ class PreparedSubmit:
 
     def __init__(self, batch: Batch, method: str, request, resp_bufs,
                  timeout_ms: int):
-        flat, owner = _request_bytes(request, {})
+        staged: dict[int, tuple] = {}
+        t0 = time.perf_counter_ns()
+        flat, owner = _request_bytes(request, staged)
+        self.staged = bool(staged)
+        self.staged_wait_ns = time.perf_counter_ns() - t0 if staged else 0
         self._owners = (flat, owner)
         self.nbytes = flat.nbytes
         self.copied = self.nbytes <= COPY_REQUEST_MAX
-        self.landing = []
-        for buf in resp_bufs:
-            v = _landing_bytes(buf)
-            self.landing.append((v.ctypes.data, v.nbytes))
-        self._slots = {id(b): s for b, s in zip(resp_bufs, self.landing)}
+        self._bufs = tuple(resp_bufs)
+        views = [_landing_bytes(buf) for buf in self._bufs]
+        self.landing = [(v.ctypes.data, v.nbytes) for v in views]
+        # id(landing buffer) -> (address, capacity, flat view)
+        self._slots = {id(b): (*s, v) for b, s, v in
+                       zip(self._bufs, self.landing, views)}
         n = len(self.landing)
         req = flat.ctypes.data if self.nbytes else None
         self._reqs = (ctypes.c_void_p * n)(*[req] * n)
@@ -535,6 +552,10 @@ class PreparedSubmit:
         self._method = method.encode()
         self._timeout_ms = timeout_ms
 
+    def landed(self, buf, nbytes: int) -> np.ndarray:
+        """The first `nbytes` of landing buffer `buf`, a flat uint8 view."""
+        return self._slots[id(buf)][2][:nbytes]
+
     def submit(self, bufs) -> list[int]:
         """One call into each of `bufs` (landing buffers given to
         `prepare`, each free for a response) in ONE crossing; returns the
@@ -545,13 +566,12 @@ class PreparedSubmit:
         if k > len(self.landing):
             raise ValueError(f"{k} calls but {len(self.landing)} landing "
                              "buffers")
-        b = self._batch
         pins = []
         with span("trpc.batch.stage"):
             rb, rc, slots = self._rb, self._rc, self._slots
             try:
                 for i, buf in enumerate(bufs):
-                    rb[i], rc[i] = slots[id(buf)]
+                    rb[i], rc[i], _ = slots[id(buf)]
             except KeyError:
                 raise ValueError("not a landing buffer of this prepared "
                                  "submit") from None
@@ -559,24 +579,9 @@ class PreparedSubmit:
                 for i in range(k):
                     self._ctxs[i] = tok = _zc.pin(*self._owners)
                     pins.append(tok)
-        with b._lock:  # as in Batch.submit: issue and _issued together
-            if not b._ptr:
-                for tok in pins:
-                    _zc.unpin(tok)
-                raise ValueError("batch is closed")
-            issued = time.monotonic_ns()
-            with span("trpc.batch.issue"):
-                got = b._lib.trpc_batch_submit(
-                    b._ptr, self._method, self._reqs, self._lens, rb, rc, k,
-                    self._timeout_ms, self._deleter, self._ctxs,
-                    self._tokens)
-            if got != k:
-                for tok in pins:  # nothing was issued; undo the pins
-                    _zc.unpin(tok)
-                raise RuntimeError("batch rejected the submit (closing?)")
-            out = self._tokens[:k]
-            b._issued.update(dict.fromkeys(out, issued))
-        return out
+        return self._batch._issue(self._method, self._reqs, self._lens, rb,
+                                  rc, k, self._timeout_ms, self._deleter,
+                                  self._ctxs, self._tokens, pins)
 
 
 def call_batch(channel, method: str, requests, resp_bufs=None,

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import threading
-import time
 
 import torch
 
@@ -40,9 +39,6 @@ _next_token = 1
 # Slab base address -> True when it is registered with the CUDA driver.
 _staging: dict[int, bool] = {}
 
-# Per thread: host nanoseconds `land` has spent in its stream synchronise.
-_synced = threading.local()
-
 
 @_DELETER_T
 def _release(data, ctx):  # noqa: ARG001 - data unused, identity is ctx
@@ -55,13 +51,6 @@ def _release(data, ctx):  # noqa: ARG001 - data unused, identity is ctx
 #: The CFUNCTYPE deleter for ctypes callers outside this module: pass it as
 #: the deleter with a `pin(...)` token as ctx.
 release_cb = _release
-
-
-def synced_ns() -> int:
-    """Host nanoseconds the calling thread has spent so far waiting in
-    `land`'s synchronise of a CUDA source's stream (the D2H of a CUDA
-    request, inside `Batch.submit`'s stage); a caller takes differences."""
-    return getattr(_synced, "ns", 0)
 
 
 def live_sends() -> int:
@@ -121,9 +110,7 @@ def land(dst: torch.Tensor, tensor: torch.Tensor) -> int:
         raise ValueError(f"{n} bytes > destination of {dst.numel()}")
     dst[:n].copy_(src, non_blocking=src.is_cuda)
     if src.is_cuda:
-        t0 = time.perf_counter_ns()
         torch.cuda.current_stream(src.device).synchronize()
-        _synced.ns = synced_ns() + time.perf_counter_ns() - t0
     return n
 
 

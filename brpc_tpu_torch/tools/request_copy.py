@@ -7,9 +7,10 @@ them.  `batch.COPY_REQUEST_MAX` is set from this.
 One native echo server and a channel in this process, over loopback tcp.
 At each size, and in each mode, a closed loop of `--depth` calls of one
 request (pinned host memory where there is a card) into as many landing
-buffers, `--calls` completions, through the batch's native submit with the
-arguments a prepared submit passes.  The modes take turns (copy, reference,
-reference, copy); the result is the median of each mode's rounds.  Prints
+buffers, `--calls` completions, through the batch's one native submit
+(`Batch._issue`) with the arguments a prepared submit passes.  The modes
+take turns (copy, reference, reference, copy); the result is the median of
+each mode's rounds.  Prints
 one JSON line: per size, calls/s and the host microseconds a call spent in
 the submit (pins and crossing) in each mode.
 
@@ -38,7 +39,7 @@ MODES = ("copy", "reference")
 def _loop(ch, mode: str, request, bufs, calls: int) -> tuple[float, float]:
     """(calls/s, host us a call in the submit) of one closed loop."""
     b = ch.pipeline()
-    lib, n = b._lib, len(bufs)
+    n = len(bufs)
     flat = request.numpy()
     reqs = (ctypes.c_void_p * n)(*[flat.ctypes.data] * n)
     lens = (ctypes.c_size_t * n)(*[flat.nbytes] * n)
@@ -55,17 +56,15 @@ def _loop(ch, mode: str, request, bufs, calls: int) -> tuple[float, float]:
         for i, (addr, cap) in enumerate(taken):
             rb[i], rc[i] = addr, cap
         if mode == "copy":
-            got = lib.trpc_batch_submit(b._ptr, b"Echo.Echo", reqs, lens, rb,
-                                        rc, k, 0, None, None, tokens)
+            out = b._issue(b"Echo.Echo", reqs, lens, rb, rc, k, 0, None,
+                           None, tokens, [])
         else:
-            for i in range(k):
-                ctxs[i] = zerocopy.pin(flat, request)
-            got = lib.trpc_batch_submit(b._ptr, b"Echo.Echo", reqs, lens, rb,
-                                        rc, k, 0, deleter, ctxs, tokens)
+            pins = [zerocopy.pin(flat, request) for _ in range(k)]
+            ctxs[:k] = pins
+            out = b._issue(b"Echo.Echo", reqs, lens, rb, rc, k, 0, deleter,
+                           ctxs, tokens, pins)
         in_submit += time.perf_counter_ns() - t0
-        if got != k:
-            raise RuntimeError("the batch rejected a submit")
-        by_token.update(zip(tokens[:k], taken))
+        by_token.update(zip(out, taken))
         submitted += k
 
     try:

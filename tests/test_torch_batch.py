@@ -702,6 +702,132 @@ def test_a_pipeline_stages_its_gpu_request_once(server, monkeypatch):
         np.testing.assert_array_equal(buf.view(torch.int32).numpy(), arr)
 
 
+#: The three ways into `Batch._issue`, the one native submit: a plain
+#: submit, and a prepared one whose request the runtime copies or pins.
+SUBMIT_PATHS = ("submit", "prepared-copy", "prepared-pin")
+
+
+def _issuer(b, path):
+    """(a callable that submits 4 calls on `b` by `path`, its tokens' pin
+    count)."""
+    nbytes = COPY_REQUEST_MAX + 4 if path == "prepared-pin" else 1024
+    req = torch.arange(nbytes // 4, dtype=torch.int32)
+    bufs = [torch.empty(nbytes, dtype=torch.uint8) for _ in range(4)]
+    if path == "submit":
+        return lambda: b.submit("Echo.Native", [req] * 4, resp_bufs=bufs), 4
+    prep = b.prepare("Echo.Native", req, bufs)
+    return (lambda: prep.submit(bufs)), (0 if prep.copied else 4)
+
+
+class _ShortLib:
+    """The native library with a submit that issues no call."""
+
+    def __init__(self, lib):
+        self._real = lib
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    @staticmethod
+    def trpc_batch_submit(*args):
+        return 0
+
+
+def _counting_pins(monkeypatch) -> list:
+    pinned = []
+    real_pin = zerocopy.pin
+    monkeypatch.setattr(zerocopy, "pin",
+                        lambda *objs: pinned.append(objs) or real_pin(*objs))
+    return pinned
+
+
+@pytest.mark.parametrize("path", SUBMIT_PATHS)
+def test_a_short_native_count_raises_and_drops_the_pins(server, monkeypatch,
+                                                        path):
+    ch = port.Channel(f"127.0.0.1:{server.port}", timeout_ms=10000)
+    b = port_batch.Batch(ch)
+    try:
+        submit, pins = _issuer(b, path)
+        assert _drained()
+        pinned = _counting_pins(monkeypatch)
+        b._lib = _ShortLib(b._lib)
+        with pytest.raises(RuntimeError, match="rejected the submit"):
+            submit()
+        assert len(pinned) == pins
+        assert port_batch.pinned_requests() == 0
+        assert not b._issued and not b._resp_pins
+    finally:
+        b.close()
+        ch.close()
+
+
+@pytest.mark.parametrize("path", SUBMIT_PATHS)
+def test_a_closed_batch_refuses_a_submit_without_a_pin(server, path):
+    ch = port.Channel(f"127.0.0.1:{server.port}", timeout_ms=10000)
+    b = port_batch.Batch(ch)
+    try:
+        submit, _ = _issuer(b, path)
+        assert _drained()
+        b.close()
+        with pytest.raises(ValueError, match="batch is closed"):
+            submit()
+        assert port_batch.pinned_requests() == 0
+    finally:
+        b.close()
+        ch.close()
+
+
+@pytest.mark.parametrize("path", SUBMIT_PATHS)
+def test_each_issued_token_is_stamped_once(server, path):
+    """One clock reading a submit, stamped on each of its tokens, and each
+    stamp dropped by the poll that drains its call."""
+    ch = port.Channel(f"127.0.0.1:{server.port}", timeout_ms=10000)
+    b = port_batch.Batch(ch)
+    try:
+        submit, _ = _issuer(b, path)
+        tokens = submit()
+        stamps = dict(b._issued)  # nothing polls before this reading
+        assert len(set(tokens)) == 4
+        assert sorted(stamps) == sorted(tokens)
+        assert len(set(stamps.values())) == 1
+        done = _poll_all(b, 4)
+        assert all(c.ok and c.in_caller_buffer for c in done.values())
+        assert not b._issued and not b._resp_pins
+    finally:
+        b.close()
+        ch.close()
+    assert _drained()
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_a_prepared_submit_reports_its_staging(server, monkeypatch, device):
+    """A request on a card is staged, and the prepared submit times it; a
+    CPU request goes by its own memory, with no staging to report."""
+    def host_view(tensor):
+        time.sleep(0.002)
+        flat = torch.Tensor.contiguous(tensor).reshape(-1).view(torch.uint8)
+        host = flat.as_subclass(torch.Tensor).clone()
+        return host.numpy(), host
+
+    monkeypatch.setattr(zerocopy, "host_view", host_view)
+    req = torch.arange(256, dtype=torch.int32)
+    if device == "cuda":
+        req = req.as_subclass(_FakeCuda)
+    ch = port.Channel(f"127.0.0.1:{server.port}", timeout_ms=10000)
+    b = port_batch.Batch(ch)
+    try:
+        prep = b.prepare("Echo.Native",
+                         req, [torch.empty(1024, dtype=torch.uint8)])
+        assert prep.staged == (device == "cuda")
+        if prep.staged:
+            assert prep.staged_wait_ns >= 2_000_000
+        else:
+            assert prep.staged_wait_ns == 0
+    finally:
+        b.close()
+        ch.close()
+
+
 class _StubEvent:
     """A landing event's surface: counts its synchronises."""
 
