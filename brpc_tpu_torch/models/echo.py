@@ -44,13 +44,45 @@ LANDED_BATCHED = "trpc_echo_landed_batched"
 SUBMITTED = "trpc_echo_submitted"
 SUBMITTED_COPIED = "trpc_echo_submitted_copied"
 STAGED = "trpc_echo_staged"
+#: Process-wide clocks of the threads that drive EchoPipelines, in /vars,
+#: taken with or without a profiler: polls that landed calls; wall ns
+#: inside `poll` less its native wait, and inside that wait (GIL released);
+#: wall ns of `submit`.  A pipeline sums these in Python (`_clock`) and
+#: adds them to the gauges every CLOCK_FLUSH_POLLS polls that land calls,
+#: at a poll that leaves nothing in flight, and at close.  A flush at
+#: least CPU_READ_NS after the thread's last reading of its CPU clock reads
+#: it again and adds the thread's CPU ns and wall ns in between: the CPU
+#: clock is a system call (microseconds on the card's host, more under
+#: load) that steps by 10 ms there, far coarser than a poll.
+POLLS = "trpc_echo_polls"
+POLL_NS = "trpc_echo_poll_ns"
+POLL_WAIT_NS = "trpc_echo_poll_wait_ns"
+SUBMIT_NS = "trpc_echo_submit_ns"
+HOST_CPU_NS = "trpc_echo_host_cpu_ns"
+HOST_CPU_WALL_NS = "trpc_echo_host_cpu_wall_ns"
+_CLOCKS = (
+    (POLLS, "echo pipeline polls that landed calls"),
+    (POLL_NS, "wall ns inside echo pipeline polls, less their native waits"),
+    (POLL_WAIT_NS, "wall ns echo pipeline polls waited in the native poll, "
+     "GIL released"),
+    (SUBMIT_NS, "wall ns inside echo pipeline submits"),
+    (HOST_CPU_NS, "CPU ns of the threads that drive echo pipelines, "
+     "between their readings of the CPU clock at flushes"),
+    (HOST_CPU_WALL_NS, "wall ns of the stretches trpc_echo_host_cpu_ns "
+     "covers"))
+_POLLS, _POLL, _WAIT, _SUBMIT, _CPU, _CPU_WALL = range(len(_CLOCKS))
+CLOCK_FLUSH_POLLS = 64
+CPU_READ_NS = 500_000_000
+#: .last: (perf_counter_ns, thread_time_ns) at this thread's last reading
+_thread_clock = threading.local()
 #: Per-tenant counters in /vars of pipelines whose channel carries a QoS
 #: tag: calls landed, and host microseconds their constructors and submits
 #: spent blocked on device work (`.format(tenant)`).
 TENANT_LANDED = "trpc_echo_{}_landed"
 TENANT_DEVICE_WAIT_US = "trpc_echo_{}_device_wait_us"
 _EchoVars = collections.namedtuple(
-    "_EchoVars", "landed landed_batched submitted submitted_copied staged")
+    "_EchoVars", "landed landed_batched submitted submitted_copied staged "
+    "clocks")
 _landed_lock = threading.Lock()
 _echo = None
 _tenants: dict = {}  # tenant -> (landed, device_wait_us) gauges
@@ -69,7 +101,8 @@ def _echo_vars() -> _EchoVars:
                 Gauge(SUBMITTED, "calls that echo pipelines submitted"),
                 Gauge(SUBMITTED_COPIED, "calls that echo pipelines "
                       "submitted whose request the runtime copied"),
-                Gauge(STAGED, "D2H stagings of echo pipelines' requests"))
+                Gauge(STAGED, "D2H stagings of echo pipelines' requests"),
+                tuple(Gauge(*c) for c in _CLOCKS))
     return _echo
 
 
@@ -205,7 +238,17 @@ class EchoPipeline:
     `trpc_echo_landed_batched` count the calls landed, and those landed
     batched; `trpc_echo_submitted` and `trpc_echo_submitted_copied` the
     calls submitted, and those whose request the runtime copied;
-    `trpc_echo_staged` the D2H stagings.
+    `trpc_echo_staged` the D2H stagings.  The calling thread's clocks,
+    profiler or not, go to `trpc_echo_polls` (polls that landed calls),
+    `trpc_echo_poll_ns` (wall time in `poll` less the native wait),
+    `trpc_echo_poll_wait_ns` (that wait, stamped by `Batch.poll`'s
+    `waited`) and `trpc_echo_submit_ns` (wall time in `submit`), read
+    every poll and submit.  A pipeline sums them and adds them to the
+    gauges every CLOCK_FLUSH_POLLS polls that land calls, whenever a poll
+    leaves nothing in flight, and at close; a flush at least CPU_READ_NS
+    after the thread last read its CPU clock reads it again and adds the
+    thread's CPU time and wall time in between to `trpc_echo_host_cpu_ns`
+    and `trpc_echo_host_cpu_wall_ns`.
 
     Under a torch profiler each step is a span (`observe.span`):
     `trpc.echo.submit` holds `trpc.echo.reuse_wait` (the taken buffers'
@@ -229,6 +272,7 @@ class EchoPipeline:
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             payload.record_stream(self._stream)
         self._vars = _echo_vars()
+        self._clock = [0] * len(_CLOCKS)  # readings not yet in the gauges
         self._tenant = None if self.qos is None else _tenant_vars(
             self.qos[0])
         self._pipe = channel.pipeline()
@@ -258,6 +302,24 @@ class EchoPipeline:
         self._mapped = None if addrs is None else {
             id(buf): a for buf, a in zip(resp_bufs, addrs)}
         self._add_wait()
+
+    def _flush_clock(self) -> None:
+        """Adds the clock readings summed since the last flush, and the
+        thread's CPU and wall time since its last reading of its CPU clock
+        (by any pipeline) where that is CPU_READ_NS old, to the
+        process-wide gauges."""
+        wall = time.perf_counter_ns()
+        last = getattr(_thread_clock, "last", None)
+        if last is None or wall - last[0] >= CPU_READ_NS:
+            cpu = time.thread_time_ns()
+            _thread_clock.last = (wall, cpu)
+            if last is not None:
+                self._clock[_CPU_WALL] += wall - last[0]
+                self._clock[_CPU] += cpu - last[1]
+        for gauge, value in zip(self._vars.clocks, self._clock):
+            if value:
+                gauge.add(value)
+        self._clock = [0] * len(_CLOCKS)
 
     def _on_stream(self):
         """The class stream as the current stream (a no-op untagged)."""
@@ -292,6 +354,7 @@ class EchoPipeline:
                              "landing buffers")
         if k <= 0:
             return
+        start = time.perf_counter_ns()
         with span("trpc.echo.submit"):
             cut = len(self._free) - k
             taken = self._free[cut:]
@@ -311,20 +374,31 @@ class EchoPipeline:
         if self._prep.copied:
             self._vars.submitted_copied.add(k)
         self._add_wait()
+        self._clock[_SUBMIT] += time.perf_counter_ns() - start
 
     def poll(self, max_n: int = 64, timeout_ms: int = -1):
         """[(echoed uint32 tensor on the payload's device, its K1 checksum
         as a 0-dim uint32 tensor)] for the completions drained.  Raises the
         first failure among them after handling all of them."""
+        start = time.perf_counter_ns()
+        waited = [start, start]  # the native wait's start and return
         with span("trpc.echo.poll"):
-            out, error = self._poll(max_n, timeout_ms)
+            out, error = self._poll(max_n, timeout_ms, waited)
+        wait = waited[1] - waited[0]
+        clock = self._clock
+        clock[_POLLS] += bool(out)
+        clock[_WAIT] += wait
+        clock[_POLL] += time.perf_counter_ns() - start - wait
+        if clock[_POLLS] >= CLOCK_FLUSH_POLLS or not self._inflight:
+            self._flush_clock()
         if error is not None:
             raise error
         return out
 
-    def _poll(self, max_n: int, timeout_ms: int):
+    def _poll(self, max_n: int, timeout_ms: int, waited: list):
         landed, error = [], None
-        for c in self._pipe.poll(max_n=max_n, timeout_ms=timeout_ms):
+        for c in self._pipe.poll(max_n=max_n, timeout_ms=timeout_ms,
+                                 waited=waited):
             buf = self._inflight.pop(c.token)
             if not c.ok:  # retired: the buffer leaves the free list
                 error = error or make_rpc_error(self._lib, c.status, c.error)
@@ -387,6 +461,7 @@ class EchoPipeline:
         return out, [(backs, sums)]
 
     def close(self) -> None:
+        self._flush_clock()
         self._pipe.close()
         for _, copied in self._free:
             if copied is not None:

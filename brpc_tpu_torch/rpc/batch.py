@@ -391,11 +391,14 @@ class Batch:
             self._prepared.append(prep)
         return prep
 
-    def poll(self, max_n: int = 64, timeout_ms: int = -1) -> list[Completion]:
+    def poll(self, max_n: int = 64, timeout_ms: int = -1,
+             waited: list | None = None) -> list[Completion]:
         """Drains up to max_n completions, blocking OUTSIDE the GIL until
         at least one is ready or timeout_ms passes (0 = non-blocking,
         < 0 = wait forever).  Returns [] on timeout, and early (with
-        whatever is buffered) once the batch is closing."""
+        whatever is buffered) once the batch is closing.  When `waited`
+        is given, `time.perf_counter_ns()` just before and just after the
+        native poll go to waited[0] and waited[1]."""
         arr = (BatchCompletion * max_n)()
         with self._lock:
             if not self._ptr:
@@ -407,7 +410,11 @@ class Batch:
             # quiesces (which wakes parked pollers out of the wait) and
             # only destroys after _active_polls drains to zero.
             with span("trpc.batch.wait"):
+                if waited is not None:
+                    waited[0] = time.perf_counter_ns()
                 got = self._lib.trpc_batch_poll(ptr, arr, max_n, timeout_ms)
+                if waited is not None:
+                    waited[1] = time.perf_counter_ns()
         finally:
             with self._lock:
                 self._active_polls -= 1
